@@ -1,0 +1,468 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (exit code 1, no result line):
+  1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
+  2. build the three CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  3. hold each kernel against its plain PyTorch version on the card at the
+     ddim-cifar10 main path's shapes (K1 bit-exact; K2/K3 within
+     rtol = atol = 1e-5 or the f32 sum-order bound, see check_close);
+  4. time kernel, plain version and library yardstick as device time
+     (CUDA-graph replays timed with CUDA events; TF32 off for the
+     yardsticks and plain versions) beside the bound;
+  5. serve ddim-cifar10 at full width through the launcher: the golden
+     trace under the virtual clock, then 8 requests x 10 ddim steps at
+     max-batch 8 on the wall clock; every kernel must launch and no
+     off-kernel route may run apart from the io sites' f32 conv;
+  6. one full-width forward at batch 8 on the card vs the same forward
+     through the plain versions on the CPU, held to the forward tolerance
+     (see forward_checks), then one profiled forward (device busy time,
+     idle share, top kernels);
+  7. a ``kernels`` JSON line, the card line, and the result line.
+Needs one card; exits non-zero without one or without the repo around it.
+"""
+from __future__ import annotations
+
+import json
+import math
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+B = 8                       # main-path batch (max-batch 8)
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
+PEAK_OPS_PER_S = 989e12     # bf16 dense tensor-core rate, H100 SXM
+PEAK_F32_PER_S = 67e12      # f32 outside the tensor cores, H100 SXM
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: ``iters`` calls are captured
+    in one CUDA graph and the graph's replays are timed with CUDA events,
+    so the host's launch overhead (Python, ctypes) is not in the number.
+    A refused capture fails the run."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+    except RuntimeError as e:
+        fail(f"CUDA graph capture refused, no device time to report: {e}")
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def bound(ops: float, nbytes: float, peak: float = PEAK_OPS_PER_S
+          ) -> tuple[float, str]:
+    """The least time the card could take: the larger of the operations
+    over the peak rate of their type and the bytes (each input read once,
+    each output written once) over the memory rate. The products' operands
+    are FP4 grid points times per-tensor scales, so the bf16 tensor-core
+    rate is their peak; the elementwise snap runs on the f32 units."""
+    t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def abs_weight(pw):
+    """|w| + |zp| per weight element, w decoded without its zero-point:
+    the summands of the product and of the rank-1 zero-point term."""
+    import torch
+    from repro_torch.core.qmodule import decode_codes, unpack_nibbles
+    w = decode_codes(unpack_nibbles(pw.packed), pw.fmt, pw.scale, 0.0,
+                     torch.float32)
+    return (w.abs() + pw.zero_point.abs()).reshape(pw.shape)
+
+
+def check_close(name, got, want, mag, k: int) -> float:
+    """K2/K3 against the plain version: the f32 sums run in another order,
+    nothing else differs. Allowed per element: the larger of the stated
+    rtol = atol = 1e-5 and 4 * sqrt(K) * 2^-24 * mag, where mag is the same
+    product over |x_q| and abs_weight (the order error of a K-term f32 sum
+    grows like sqrt(K) ulps of the summands' magnitude, which can be far
+    above their sum). One wrong term, a whole |x w|, stays far above it."""
+    diff = (got - want).abs()
+    err = float(diff.max())
+    allowed = (TOL["atol"] + TOL["rtol"] * want.abs()).maximum(
+        4.0 * math.sqrt(k) * 2.0**-24 * mag)
+    bad = diff > allowed
+    if bool(bad.any()):
+        fail(f"{name}: kernel disagrees with its plain version at "
+             f"{int(bad.sum())} elements (max abs err {err:.3g}, allowed "
+             f"there {float(allowed[bad].max()):.3g})")
+    return err
+
+
+def kernel_checks(dev):
+    """Phases 3 and 4: per kernel, per main-path shape, check and time."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.common.device import no_tf32
+    from repro_torch.core.qmodule import dequant_weight, pack_weight
+    from repro_torch.kernels import conv as k3
+    from repro_torch.kernels import msfp_quant as k1
+    from repro_torch.kernels import w4_matmul as k2
+    from repro_torch.quant.fakequant import QuantizerParams, apply_qdq
+
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    def qp(signed, maxval, zp=0.0, per=None):
+        mv = maxval if per is None else per
+        return QuantizerParams(0 if signed else 1, 2, 1 if signed else 2, 4,
+                               torch.as_tensor(mv, dtype=torch.float32,
+                                               device=dev),
+                               torch.tensor(zp, device=dev))
+
+    rows = {"msfp_qdq": [], "w4a4_matmul": [], "w4a4_conv2d": []}
+
+    # K1: the io-site act snaps, (B*1024, 3) at conv_in, (B*1024, 128) at
+    # conv_out; signed E2M1 at maxval 6 (main path) and unsigned E2M2.
+    for m, n in ((B * 1024, 3), (B * 1024, 128)):
+        x = randn(m, n, scale=2.0)
+        for signed in (True, False):
+            q = qp(signed, 6.0 if signed else 3.0, 0.0 if signed else -0.28)
+            kw = dict(exp_bits=q.exp_bits, man_bits=q.man_bits, signed=signed)
+            args = (x, q.maxval, q.zero_point)
+            got = k1.msfp_qdq_2d_cuda(*args, **kw)
+            want = k1.msfp_qdq_2d_plain(*args, **kw)
+            if not torch.equal(got, want):
+                fail(f"msfp_qdq ({m},{n}) signed={signed}: not bit-exact "
+                     f"({int((got != want).sum())} elements differ)")
+            if not signed:
+                continue
+            ms = cuda_ms(lambda: k1.msfp_qdq_2d_cuda(*args, **kw))
+            plain_ms = cuda_ms(lambda: k1.msfp_qdq_2d_plain(*args, **kw))
+            b_ms, b_by = bound(20.0 * m * n, 2 * 4 * m * n, PEAK_F32_PER_S)
+            rows["msfp_qdq"].append(dict(
+                shape=f"({m},{n})", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None))
+
+    # K2: attention q/k/v/proj at 16x16 x 256 ch, and temb1 (B, 512)x512.
+    for m, k, n in ((B * 256, 256, 256), (B, 512, 512)):
+        x = randn(m, k)
+        w = randn(k, n, scale=k ** -0.5)
+        cases = [(qp(True, float(w.abs().max())), qp(True, 6.0)),
+                 (qp(False, 0.0, -0.3 * float(w.abs().max()),
+                     per=w.abs().amax(0) * 1.2), qp(False, 3.0, -0.28))]
+        for i, (wq, aq) in enumerate(cases):
+            pw = pack_weight(w, wq)
+            act = (aq.maxval, aq.zero_point, aq.exp_bits, aq.man_bits,
+                   aq.kind == 0)
+            args = (x, pw.packed, pw.scale, pw.zero_point, act)
+            kw = dict(exp_bits=pw.exp_bits, man_bits=pw.man_bits,
+                      signed=pw.signed)
+            got = k2.w4_matmul_2d_cuda(*args, **kw)
+            wd = dequant_weight(pw, torch.float32)
+            with no_tf32():
+                want = k2.w4_matmul_2d_plain(*args, **kw)
+                mag = apply_qdq(x, aq).abs() @ abs_weight(pw)
+            err = check_close(f"w4a4_matmul ({m},{k})x({k},{n}) case {i}",
+                              got, want, mag, k)
+            if i:
+                continue
+            ms = cuda_ms(lambda: k2.w4_matmul_2d_cuda(*args, **kw))
+            with no_tf32():
+                plain_ms = cuda_ms(lambda: k2.w4_matmul_2d_plain(*args, **kw))
+                lib_ms = cuda_ms(lambda: torch.matmul(x, wd))
+            b_ms, b_by = bound(2.0 * m * k * n, 4 * m * k + k * n // 2
+                               + 4 * m * n)
+            rows["w4a4_matmul"].append(dict(
+                shape=f"({m},{k})x({k},{n})", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms))
+
+    # K3: ResBlock conv 3x3 s1 at 32x32 128->128, downsample 3x3 s2
+    # 32->16, up-path 3x3 s1 at 8x8 512->256 and its 1x1 skip 512->256.
+    for hw, cin, cout, kk, s in ((32, 128, 128, 3, 1), (32, 128, 128, 3, 2),
+                                 (8, 512, 256, 3, 1), (8, 512, 256, 1, 1)):
+        x = randn(B, hw, hw, cin)
+        w = randn(kk, kk, cin, cout, scale=(kk * kk * cin) ** -0.5)
+        cases = [(qp(True, float(w.abs().max())), qp(True, 6.0)),
+                 (qp(False, 0.0, -0.3 * float(w.abs().max()),
+                     per=w.abs().amax((0, 1, 2)) * 1.2),
+                  qp(False, 3.0, -0.28))]
+        label = f"{kk}x{kk} s{s} {hw}x{hw} {cin}->{cout}"
+        for i, (wq, aq) in enumerate(cases):
+            pw = pack_weight(w, wq)
+            kw = dict(stride=(s, s), padding="SAME")
+            got = k3.w4a4_conv2d_implicit_cuda(x, pw, aq, **kw)
+            want = k3.w4a4_conv2d_implicit_plain(x, pw, aq, **kw)
+            mag = k3.conv2d_nhwc(apply_qdq(x, aq).abs(), abs_weight(pw),
+                                 **kw)
+            err = check_close(f"w4a4_conv2d {label} case {i}", got, want,
+                              mag, kk * kk * cin)
+            if i:
+                continue
+            ms = cuda_ms(lambda: k3.w4a4_conv2d_implicit_cuda(x, pw, aq, **kw))
+            plain_ms = cuda_ms(
+                lambda: k3.w4a4_conv2d_implicit_plain(x, pw, aq, **kw))
+            oh, ow, (ph0, ph1), (pw0, pw1) = k3.conv_geometry(
+                x.shape, kk, kk, (s, s), "SAME")
+            xn = F.pad(x.permute(0, 3, 1, 2), (pw0, pw1, ph0, ph1)).contiguous()
+            wn = dequant_weight(pw, torch.float32).permute(3, 2, 0, 1).contiguous()
+            with no_tf32():
+                lib_ms = cuda_ms(lambda: F.conv2d(xn, wn, stride=s))
+            m, kdim = B * oh * ow, kk * kk * cin
+            b_ms, b_by = bound(2.0 * m * kdim * cout,
+                               4 * x.numel() + kdim * cout // 2 + 4 * m * cout)
+            rows["w4a4_conv2d"].append(dict(
+                shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    return rows
+
+
+def launch_counts():
+    from repro_torch.kernels import conv as k3
+    from repro_torch.kernels import msfp_quant as k1
+    from repro_torch.kernels import w4_matmul as k2
+    return {"msfp_qdq": k1.msfp_qdq_2d_cuda.launches,
+            "w4a4_matmul": k2.w4_matmul_2d_cuda.launches,
+            "w4a4_conv2d": k3.w4a4_conv2d_implicit_cuda.launches}
+
+
+def reset_counts():
+    from repro_torch.kernels import conv as k3
+    from repro_torch.kernels import msfp_quant as k1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import w4_matmul as k2
+    for fn in (k1.msfp_qdq_2d_cuda, k2.w4_matmul_2d_cuda,
+               k3.w4a4_conv2d_implicit_cuda):
+        fn.launches = 0
+    ops.reset_routes()
+
+
+def serve(name: str, argv: list[str]) -> dict:
+    """Phase 5: one launcher run with the counts set to 0 just before it
+    and read just after (the launcher raises on a non-finite x0)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_diffusion
+    print(f"--- serve: {name}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = serve_diffusion.main(argv)
+    counts = launch_counts()
+    routes = dict(ops.ROUTES)
+    for k, n in counts.items():
+        if n <= 0:
+            fail(f"{name}: kernel {k} was never launched")
+    off = {f"{op}/{r}": n for (op, r), n in routes.items()
+           if r not in ops.KERNEL_ROUTES and (op, r) != ("conv2d", "torch_f32")}
+    if off:
+        fail(f"{name}: off-kernel routes ran on the card: {off}")
+    s = out["engine"]
+    print(f"serve {name}: {out['summary']['requests']} requests, "
+          f"{out['summary']['requests'] / out['wall_s']:.3f} req/s, "
+          f"{out['evals'] / out['wall_s']:.2f} denoise evals/s, "
+          f"wall {out['wall_s']:.3f}s, bank hits/misses/builds "
+          f"{s['bank_hits']}/{s['bank_misses']}/{s['bank_builds']}, "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"launches {counts}", flush=True)
+    return {"counts": counts, "out": out}
+
+
+def forward_checks(dev) -> dict:
+    """Phase 6: a full-width forward at the main path's batch through the
+    kernels vs the same forward through the plain versions on the CPU;
+    then one profiled forward, for where the device time goes.
+
+    An element counts as off when it differs by more than 1e-4 of the
+    output's largest magnitude: the outputs of random weights are small
+    (conv_out is initialised at scale 1e-5), so an absolute 1e-4 could
+    never fail."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.common.tree import flatten_paths
+    from repro_torch.configs.diffusion_presets import ddim_cifar10
+    from repro_torch.nn.unet import io_sites, unet_apply, unet_init
+    from repro_torch.quant.calibrate import QuantContext
+    from repro_torch.quant.fakequant import QuantizerParams
+    from repro_torch.serving.weight_bank import (_tree_to,
+                                                 default_serving_plan,
+                                                 pack_param_tree)
+    cfg = ddim_cifar10()
+    gen = torch.Generator().manual_seed(1)
+    params = unet_init(gen, cfg, dev)
+    weights = {k: v for k, v in flatten_paths(params).items()
+               if k.endswith("/w") and v.ndim >= 2}
+    packed, _ = pack_param_tree(params, default_serving_plan(
+        weights, io_sites=io_sites(params)))
+    x = torch.randn(B, 32, 32, 3, generator=gen)
+    ts = torch.arange(B, dtype=torch.float32) * 12.0
+
+    def run(device):
+        ctx = QuantContext("serve", act_qps={"*": QuantizerParams(
+            0, 2, 1, 4, torch.tensor(6.0, device=device))})
+        p = _tree_to(packed, device)
+        with torch.inference_mode():
+            return unet_apply(p, x.to(device), ts.to(device), cfg,
+                              ctx=ctx).cpu()
+
+    got, want = run(dev), run(torch.device("cpu"))
+    g, w = got.double().numpy(), want.double().numpy()
+    if not np.isfinite(g).all():
+        fail("full-width forward on the card is not finite")
+    rel = float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+    atol = 1e-4 * float(np.abs(w).max())
+    off = float(np.mean(np.abs(g - w) > atol))
+    print(f"forward ddim-cifar10 B={B}: card vs CPU plain: relative Frobenius "
+          f"error {rel:.3g}, max abs err {float(np.abs(g - w).max()):.3g}, "
+          f"{off:.4%} of elements off by > {atol:.3g} (1e-4 of max |out| "
+          f"{float(np.abs(w).max()):.3g})", flush=True)
+    if rel > 1e-3 or off > 0.01:
+        fail("full-width forward disagrees with the plain CPU forward")
+
+    p_dev = _tree_to(packed, dev)
+    ctx = QuantContext("serve", act_qps={"*": QuantizerParams(
+        0, 2, 1, 4, torch.tensor(6.0, device=dev))})
+    xb, tb = x.to(dev), ts.to(dev)
+
+    def fwd():
+        with torch.inference_mode():
+            return unet_apply(p_dev, xb, tb, cfg, ctx=ctx)
+
+    fwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fwd()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # kernel rows only: an aten op's row repeats its kernels' device time
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in evs) / 1e3
+    top = sorted(evs, key=dev_us, reverse=True)[:8]
+    print(f"profile forward ddim-cifar10 B={B}: wall {wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}", flush=True)
+    for e in top:
+        print(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}",
+              flush=True)
+    return {"rel_frobenius": rel, "frac_off": off,
+            "profile_wall_ms": wall_ms, "profile_device_busy_ms": busy_ms}
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError as e:
+        fail(f"torch is not importable: {e}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a card")
+    try:
+        from repro_torch.kernels import build
+    except ImportError as e:
+        fail(f"the port is not importable from {ROOT / 'src'}: {e}")
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} "
+          f"x{torch.cuda.device_count()}", flush=True)
+
+    t0 = time.perf_counter()
+    built = build.build()
+    print(f"built {built or 'nothing (cached)'} in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    rows = kernel_checks(dev)
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"kernel {name} {r['shape']}: {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, library "
+                  f"{'-' if r['library_ms'] is None else '%.4f' % r['library_ms']}"
+                  f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                  f"max abs err {r['max_abs_err']:.3g}", flush=True)
+
+    trace = str(ROOT / "tests" / "data" / "golden_trace.jsonl")
+    golden = serve("golden trace, virtual clock", [
+        "--preset", "ddim-cifar10", "--trace", trace,
+        "--replay-clock", "virtual", "--device", "cuda"])
+    wall = serve("8 requests x 10 steps, wall clock", [
+        "--preset", "ddim-cifar10", "--requests", "8", "--steps", "10",
+        "--max-batch", "8", "--device", "cuda"])
+    launches = {k: golden["counts"][k] + wall["counts"][k]
+                for k in golden["counts"]}
+    fwd = forward_checks(dev)
+
+    source = "src/repro_torch/kernels/csrc/"
+    meta = {"msfp_qdq": (source + "msfp_quant.cu",
+                         "src/repro/kernels/msfp_quant.py:55"),
+            "w4a4_matmul": (source + "w4_matmul.cu",
+                            "src/repro/kernels/w4_matmul.py:240"),
+            "w4a4_conv2d": (source + "conv.cu",
+                            "src/repro/kernels/conv.py:232")}
+    kernels = []
+    for name, rs in rows.items():
+        head = rs[0]        # the main path's heaviest shape of this kernel
+        kernels.append({
+            "name": name, "route": "cuda", "source": meta[name][0],
+            "replaces": meta[name][1], "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": head["shape"],
+            "shapes": rs})
+    for k in kernels:
+        for v in (k["ms"], k["plain_ms"], k["bound_ms"]):
+            if not (isinstance(v, float) and math.isfinite(v) and v > 0):
+                fail(f"kernel {k['name']}: bad timing {v}")
+    print(json.dumps({"kernels": kernels,
+                      "serve": {"golden_digest": golden["out"]["digest"],
+                                "wall_req_per_s": wall["out"]["summary"][
+                                    "requests"] / wall["out"]["wall_s"]},
+                      "forward": fwd}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

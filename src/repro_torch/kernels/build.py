@@ -1,0 +1,108 @@
+"""Build the CUDA kernels with nvcc and bind them through ctypes.
+
+Each ``csrc/<name>.cu`` compiles to its own shared library with a plain C
+interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``),
+named by a hash of the sources so an edit rebuilds and an unchanged tree
+reuses the build. ``build()`` starts one nvcc per missing library, all at
+once, and waits for them. Libraries go under ``build/kernels/`` at the repo
+root (listed in ``.gitignore``). Nothing here runs at import (the CPU
+tests import every module); a build happens where a kernel is launched.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("msfp_quant", "w4_matmul", "conv")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry points: name -> (library, argtypes); every one returns the
+# cudaError_t of its launch as an int.
+SIGNATURES = {
+    "msfp_qdq_launch": ("msfp_quant", [P, P, LL, P, P, I, I, I, I, P]),
+    "w4_matmul_launch": ("w4_matmul",
+                         [P, P, P, P, I, I, I, I, I, I, I, P, P, I, I, I, I,
+                          I, P, P]),
+    "w4_conv2d_launch": ("conv",
+                         [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I,
+                          I, I, I, I, P, P, I, I, I, I, I, P, P]),
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def lib_path(name: str) -> pathlib.Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names=SOURCES) -> list[str]:
+    """Compile every library in ``names`` that is not built yet, one nvcc
+    process each, all started together. Returns the names it compiled."""
+    todo = [n for n in names if not lib_path(n).exists()]
+    if not todo:
+        return []
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for n in todo:
+        out = lib_path(n)
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs.append((n, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    errors = []
+    for n, out, tmp, p in procs:
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"nvcc {n}.cu failed ({p.returncode}):\n"
+                          f"{log.decode(errors='replace')}")
+        else:
+            os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return todo
+
+
+def function(fn_name: str):
+    """The bound C entry point ``fn_name`` (building its library first)."""
+    lib_name, argtypes = SIGNATURES[fn_name]
+    with _lock:
+        lib = _libs.get(lib_name)
+        if lib is None:
+            build([lib_name])
+            lib = ctypes.CDLL(str(lib_path(lib_name)))
+            for name, (owner, types) in SIGNATURES.items():
+                if owner == lib_name:
+                    fn = getattr(lib, name)
+                    fn.argtypes = types
+                    fn.restype = ctypes.c_int
+            _libs[lib_name] = lib
+    return getattr(lib, fn_name)
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")

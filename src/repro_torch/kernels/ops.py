@@ -1,0 +1,163 @@
+"""Kernel dispatch; port of ``repro.kernels.ops``.
+
+Every op dispatches on its input's device: a CUDA tensor launches the
+hand-written kernel (K1 ``msfp_quant``, K2 ``w4_matmul``, K3 ``conv``) or
+raises, a CPU tensor takes the kernel's plain PyTorch version. There is no
+fallback from a failed kernel to the plain version.
+
+The branches that no kernel covers keep the reference's rules (INT-affine
+or per-channel act params, stacked packs -> ``kernels/ref.py``; the dense
+f32 conv/matmul of bf16-fallback weights) and, like every other decision
+here, go through ``_dispatch``, which counts it in ``ROUTES`` under
+``(op, route)``. Route labels: ``cuda`` / ``cuda:implicit`` /
+``cuda:im2col`` (a kernel), ``plain`` / ``plain:*`` (a kernel's plain
+version on the CPU), ``ref`` (an off-kernel oracle) and ``torch_f32``
+(the dense f32 product at the io sites, which the reference leaves to XLA
+too).
+
+``CONV_ROUTE``: ``"implicit"`` (the implicit-GEMM kernel K3) or
+``"im2col"`` (unfold + K2).
+"""
+from __future__ import annotations
+
+import collections
+
+import torch
+
+from repro_torch.common.device import no_tf32
+from repro_torch.core.qmodule import PackedW4
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.conv import (conv2d_nhwc, w4a4_conv2d_im2col,
+                                      w4a4_conv2d_implicit)
+from repro_torch.kernels.msfp_quant import msfp_qdq
+from repro_torch.kernels.w4_matmul import w4_matmul_2d
+from repro_torch.quant.fakequant import (KIND_FP_SIGNED, KIND_FP_UNSIGNED,
+                                         KIND_INT_AFFINE, QuantizerParams)
+
+CONV_ROUTE: str = "implicit"  # "implicit" | "im2col"
+
+# (op, route) -> dispatch count; reset_routes() clears it.
+ROUTES: collections.Counter = collections.Counter()
+
+KERNEL_ROUTES = ("cuda", "cuda:implicit", "cuda:im2col")
+
+
+def _dispatch(op: str, route: str, thunk):
+    ROUTES[(op, route)] += 1
+    return thunk()
+
+
+def reset_routes() -> None:
+    ROUTES.clear()
+
+
+def _kernel_label(x: torch.Tensor) -> str:
+    return "cuda" if x.device.type == "cuda" else "plain"
+
+
+def msfp_quantize(x: torch.Tensor, qp: QuantizerParams) -> torch.Tensor:
+    """Fused fake-quant (serving path). The kernel takes per-tensor FP
+    parameters; INT-affine and per-channel maxvals take the oracle."""
+    if qp.kind != KIND_INT_AFFINE and qp.maxval.numel() == 1:
+        return _dispatch("msfp_quantize", _kernel_label(x),
+                         lambda: msfp_qdq(x, qp))
+    return _dispatch("msfp_quantize", "ref",
+                     lambda: _ref.ref_msfp_qdq(x, qp))
+
+
+def _w4_ok(pw: PackedW4) -> bool:
+    """The kernels cover every MSFP format with a scalar or per-output-
+    channel scale on a single 2D pack; stacked packs take the oracle."""
+    if pw.packed.ndim != 2:
+        return False
+    if pw.scale.numel() == 1:
+        return True
+    return pw.scale.ndim == 1 and pw.scale.shape[0] == 2 * pw.packed.shape[-1]
+
+
+def _w4_args(pw: PackedW4) -> dict:
+    return dict(exp_bits=pw.exp_bits, man_bits=pw.man_bits, signed=pw.signed)
+
+
+def w4_matmul(x: torch.Tensor, pw: PackedW4) -> torch.Tensor:
+    """x: (..., K) @ packed W4 (K, N/2-packed) -> (..., N)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if _w4_ok(pw):
+        out = _dispatch("w4_matmul", _kernel_label(x), lambda: w4_matmul_2d(
+            x2, pw.packed, pw.scale, pw.zero_point, None, **_w4_args(pw)))
+    else:
+        out = _dispatch("w4_matmul", "ref",
+                        lambda: _ref.ref_w4_matmul(x2, pw, x.dtype))
+    return out.reshape(*lead, out.shape[-1])
+
+
+def w4a4_matmul(x: torch.Tensor, pw: PackedW4,
+                act_qp: QuantizerParams | None) -> torch.Tensor:
+    """Fused activation-quant + W4 matmul: qdq(x, act_qp) @ W in one kernel;
+    INT-affine or per-channel act params fall back to qdq-then-matmul."""
+    if act_qp is None:
+        return w4_matmul(x, pw)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if (_w4_ok(pw) and act_qp.kind != KIND_INT_AFFINE
+            and act_qp.maxval.numel() == 1):
+        act = (act_qp.maxval, act_qp.zero_point, act_qp.exp_bits,
+               act_qp.man_bits, act_qp.kind == KIND_FP_SIGNED)
+        out = _dispatch("w4a4_matmul", _kernel_label(x), lambda: w4_matmul_2d(
+            x2, pw.packed, pw.scale, pw.zero_point, act, **_w4_args(pw)))
+    else:
+        out = _dispatch("w4a4_matmul", "ref",
+                        lambda: _ref.ref_w4a4_matmul(x2, pw, act_qp, x.dtype))
+    return out.reshape(*lead, out.shape[-1])
+
+
+def _normalize_stride(stride) -> tuple[int, int]:
+    return (stride, stride) if isinstance(stride, int) else tuple(stride)
+
+
+def w4a4_conv2d(x: torch.Tensor, pw: PackedW4,
+                act_qp: QuantizerParams | None = None, *,
+                stride=1, padding="SAME") -> torch.Tensor:
+    """NHWC conv on a packed HWIO W4 weight.
+
+    The implicit route fuses signed and unsigned per-tensor FP act snaps;
+    the im2col route fuses signed ones only. Any other act quantizer is
+    applied first (``msfp_quantize``), as the reference does."""
+    strides = _normalize_stride(stride)
+    if len(pw.shape) == 4 and _w4_ok(pw):
+        route = CONV_ROUTE
+        if route not in ("implicit", "im2col"):
+            raise ValueError(f"CONV_ROUTE must be 'implicit' or 'im2col', "
+                             f"got {route!r}")
+        fusable = ((KIND_FP_SIGNED, KIND_FP_UNSIGNED) if route == "implicit"
+                   else (KIND_FP_SIGNED,))
+        if act_qp is not None and not (act_qp.kind in fusable
+                                       and act_qp.maxval.numel() == 1):
+            x = msfp_quantize(x, act_qp)
+            act_qp = None
+        fn = w4a4_conv2d_implicit if route == "implicit" else w4a4_conv2d_im2col
+        return _dispatch("w4a4_conv2d", f"{_kernel_label(x)}:{route}",
+                         lambda: fn(x, pw, act_qp, stride=strides,
+                                    padding=padding))
+    if act_qp is not None and not (act_qp.kind == KIND_FP_SIGNED
+                                   and act_qp.maxval.numel() == 1):
+        x = msfp_quantize(x, act_qp)
+        act_qp = None
+    return _dispatch("w4a4_conv2d", "ref", lambda: _ref.ref_w4a4_conv2d(
+        x, pw, act_qp, stride=strides, padding=padding, dtype=x.dtype))
+
+
+def dense_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride=1,
+                 padding="SAME") -> torch.Tensor:
+    """The f32 conv of a dense (bf16-fallback) weight: the io sites."""
+    return _dispatch("conv2d", "torch_f32", lambda: conv2d_nhwc(
+        x, w.to(x.dtype), stride=_normalize_stride(stride), padding=padding))
+
+
+def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The f32 matmul of a dense (bf16-fallback) weight."""
+    def run():
+        with no_tf32():
+            return x @ w.to(x.dtype)
+    return _dispatch("matmul", "torch_f32", run)
