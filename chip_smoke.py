@@ -5,22 +5,34 @@
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-  2. build the three CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  2. build the four CUDA sources from ``src/repro_torch/kernels/csrc`` (one
+     nvcc each, all at once);
   3. hold each kernel against its plain PyTorch version on the card at the
-     ddim-cifar10 main path's shapes (K1 bit-exact; K2/K3 within
-     rtol = atol = 1e-5 or the f32 sum-order bound, see check_close);
+     main paths' shapes: ddim-cifar10's and smollm-135m's decode (K1, K4
+     and K5 bit-exact; K2/K3 within rtol = atol = 1e-5 or the f32
+     sum-order bound, plus one bf16 rounding step for bf16 outputs, see
+     check_close);
   4. time kernel, plain version and library yardstick as device time
      (CUDA-graph replays timed with CUDA events; TF32 off for the
      yardsticks and plain versions) beside the bound;
   5. serve ddim-cifar10 at full width through the launcher: the golden
      trace under the virtual clock, then 8 requests x 10 ddim steps at
-     max-batch 8 on the wall clock; every kernel must launch and no
-     off-kernel route may run apart from the io sites' f32 conv;
+     max-batch 8 on the wall clock; every kernel of the path must launch
+     and no off-kernel route may run apart from the io sites' f32 conv;
   6. one full-width forward at batch 8 on the card vs the same forward
      through the plain versions on the CPU, held to the forward tolerance
      (see forward_checks), then one profiled forward (device busy time,
      idle share, top kernels);
-  7. a ``kernels`` JSON line, the card line, and the result line.
+  7. serve smollm-135m at full width (W4A4, FP4 KV cache, batch 8, 32
+     prompt + 32 generated tokens) through its launcher: K2, K4 and K5
+     must launch and no off-kernel route may run apart from the tied LM
+     head's product;
+  8. a few teacher-forced decode steps of smollm-135m at full width, in
+     f32 and in bf16, on the card vs the plain CPU path, each held to its
+     limit (see lm_checks), then one bf16 decode step timed and profiled;
+  9. a ``kernels`` JSON line (each kernel's launches in all and per path:
+     per forward for ddim-cifar10, per decode step for smollm-135m), the
+     card line, and the result line.
 Needs one card; exits non-zero without one or without the repo around it.
 """
 from __future__ import annotations
@@ -113,11 +125,16 @@ def check_close(name, got, want, mag, k: int) -> float:
     rtol = atol = 1e-5 and 4 * sqrt(K) * 2^-24 * mag, where mag is the same
     product over |x_q| and abs_weight (the order error of a K-term f32 sum
     grows like sqrt(K) ulps of the summands' magnitude, which can be far
-    above their sum). One wrong term, a whole |x w|, stays far above it."""
+    above their sum). One wrong term, a whole |x w|, stays far above it.
+    A bf16 output adds one bf16 rounding step (eps * |want|): two f32 sums
+    an ulp apart can round to neighbouring bf16 values."""
+    import torch
+    eps = torch.finfo(got.dtype).eps if got.dtype == torch.bfloat16 else 0.0
+    got, want = got.float(), want.float()
     diff = (got - want).abs()
     err = float(diff.max())
     allowed = (TOL["atol"] + TOL["rtol"] * want.abs()).maximum(
-        4.0 * math.sqrt(k) * 2.0**-24 * mag)
+        4.0 * math.sqrt(k) * 2.0**-24 * mag) + eps * want.abs()
     bad = diff > allowed
     if bool(bad.any()):
         fail(f"{name}: kernel disagrees with its plain version at "
@@ -174,9 +191,14 @@ def kernel_checks(dev):
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None))
 
-    # K2: attention q/k/v/proj at 16x16 x 256 ch, and temb1 (B, 512)x512.
-    for m, k, n in ((B * 256, 256, 256), (B, 512, 512)):
-        x = randn(m, k)
+    # K2: attention q/k/v/proj at 16x16 x 256 ch, and temb1 (B, 512)x512
+    # (ddim-cifar10, f32); smollm-135m's decode at batch B in bf16: the
+    # up/gate projection (B,576)x(576,1536) and down (B,1536)x(1536,576).
+    for m, k, n, dt in ((B * 256, 256, 256, torch.float32),
+                        (B, 512, 512, torch.float32),
+                        (B, 576, 1536, torch.bfloat16),
+                        (B, 1536, 576, torch.bfloat16)):
+        x = randn(m, k).to(dt)
         w = randn(k, n, scale=k ** -0.5)
         cases = [(qp(True, float(w.abs().max())), qp(True, 6.0)),
                  (qp(False, 0.0, -0.3 * float(w.abs().max()),
@@ -192,19 +214,23 @@ def kernel_checks(dev):
             wd = dequant_weight(pw, torch.float32)
             with no_tf32():
                 want = k2.w4_matmul_2d_plain(*args, **kw)
-                mag = apply_qdq(x, aq).abs() @ abs_weight(pw)
-            err = check_close(f"w4a4_matmul ({m},{k})x({k},{n}) case {i}",
-                              got, want, mag, k)
+                mag = apply_qdq(x, aq).float().abs() @ abs_weight(pw)
+            label = f"({m},{k})x({k},{n})" + (
+                " bf16" if dt == torch.bfloat16 else "")
+            err = check_close(f"w4a4_matmul {label} case {i}", got, want,
+                              mag, k)
             if i:
                 continue
             ms = cuda_ms(lambda: k2.w4_matmul_2d_cuda(*args, **kw))
+            xf = x.float()
             with no_tf32():
                 plain_ms = cuda_ms(lambda: k2.w4_matmul_2d_plain(*args, **kw))
-                lib_ms = cuda_ms(lambda: torch.matmul(x, wd))
-            b_ms, b_by = bound(2.0 * m * k * n, 4 * m * k + k * n // 2
-                               + 4 * m * n)
+                lib_ms = cuda_ms(lambda: torch.matmul(xf, wd))
+            elt = x.element_size()
+            b_ms, b_by = bound(2.0 * m * k * n, elt * m * k + k * n // 2
+                               + elt * m * n)
             rows["w4a4_matmul"].append(dict(
-                shape=f"({m},{k})x({k},{n})", max_abs_err=err, ms=ms,
+                shape=label, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms))
 
@@ -248,45 +274,58 @@ def kernel_checks(dev):
     return rows
 
 
-def launch_counts():
+def kernel_fns() -> dict:
+    """Each kernel's CUDA wrapper, which counts its launches."""
     from repro_torch.kernels import conv as k3
+    from repro_torch.kernels import kv4 as k45
     from repro_torch.kernels import msfp_quant as k1
     from repro_torch.kernels import w4_matmul as k2
-    return {"msfp_qdq": k1.msfp_qdq_2d_cuda.launches,
-            "w4a4_matmul": k2.w4_matmul_2d_cuda.launches,
-            "w4a4_conv2d": k3.w4a4_conv2d_implicit_cuda.launches}
+    return {"msfp_qdq": k1.msfp_qdq_2d_cuda,
+            "w4a4_matmul": k2.w4_matmul_2d_cuda,
+            "w4a4_conv2d": k3.w4a4_conv2d_implicit_cuda,
+            "kv4_encode": k45.kv4_encode_2d_cuda,
+            "kv4_decode": k45.kv4_decode_2d_cuda}
+
+
+def launch_counts() -> dict:
+    return {k: fn.launches for k, fn in kernel_fns().items()}
 
 
 def reset_counts():
-    from repro_torch.kernels import conv as k3
-    from repro_torch.kernels import msfp_quant as k1
     from repro_torch.kernels import ops
-    from repro_torch.kernels import w4_matmul as k2
-    for fn in (k1.msfp_qdq_2d_cuda, k2.w4_matmul_2d_cuda,
-               k3.w4a4_conv2d_implicit_cuda):
+    for fn in kernel_fns().values():
         fn.launches = 0
     ops.reset_routes()
+
+
+def check_path(name: str, counts: dict, needed, allowed_off) -> None:
+    """Every kernel of the path launched; no off-kernel route ran apart
+    from the ``allowed_off`` (op, route) pairs."""
+    from repro_torch.kernels import ops
+    for k in needed:
+        if counts[k] <= 0:
+            fail(f"{name}: kernel {k} was never launched")
+    off = {f"{op}/{r}": n for (op, r), n in ops.ROUTES.items()
+           if r not in ops.KERNEL_ROUTES and (op, r) not in allowed_off}
+    if off:
+        fail(f"{name}: off-kernel routes ran on the card: {off}")
+
+
+DIFFUSION_KERNELS = ("msfp_qdq", "w4a4_matmul", "w4a4_conv2d")
+LM_KERNELS = ("w4a4_matmul", "kv4_encode", "kv4_decode")
 
 
 def serve(name: str, argv: list[str]) -> dict:
     """Phase 5: one launcher run with the counts set to 0 just before it
     and read just after (the launcher raises on a non-finite x0)."""
     import torch
-    from repro_torch.kernels import ops
     from repro_torch.launch import serve_diffusion
     print(f"--- serve: {name}", flush=True)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     out = serve_diffusion.main(argv)
     counts = launch_counts()
-    routes = dict(ops.ROUTES)
-    for k, n in counts.items():
-        if n <= 0:
-            fail(f"{name}: kernel {k} was never launched")
-    off = {f"{op}/{r}": n for (op, r), n in routes.items()
-           if r not in ops.KERNEL_ROUTES and (op, r) != ("conv2d", "torch_f32")}
-    if off:
-        fail(f"{name}: off-kernel routes ran on the card: {off}")
+    check_path(name, counts, DIFFUSION_KERNELS, {("conv2d", "torch_f32")})
     s = out["engine"]
     print(f"serve {name}: {out['summary']['requests']} requests, "
           f"{out['summary']['requests'] / out['wall_s']:.3f} req/s, "
@@ -296,7 +335,7 @@ def serve(name: str, argv: list[str]) -> dict:
           f"max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
           f"launches {counts}", flush=True)
-    return {"counts": counts, "out": out}
+    return {"counts": counts, "out": out, "units": s["forwards"]}
 
 
 def forward_checks(dev) -> dict:
@@ -369,24 +408,241 @@ def forward_checks(dev) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
+    busy_ms, top = device_time(prof)
+    print(f"profile forward ddim-cifar10 B={B}: wall {wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}", flush=True)
+    for line in top:
+        print(line, flush=True)
+    return {"rel_frobenius": rel, "frac_off": off,
+            "profile_wall_ms": wall_ms, "profile_device_busy_ms": busy_ms}
+
+
+def kv4_checks(dev) -> dict:
+    """Phases 3 and 4 for K4/K5: bit-exact with the plain versions on the
+    card (packed bytes, f16 scale bits, decoded bits), then timed. K4 at
+    the decode step's (B*n_kv, hd) = (24, 64) and at (8192, 64); K5 over
+    the serve phase's cache (B*s_max*n_kv, hd/2) = (1536, 32) and a
+    2048-token one, (49152, 32). Both are elementwise: the bound counts
+    20 f32 operations per element for K4 (as K1) and 8 for K5."""
+    import torch
+    from repro_torch.kernels import kv4 as k45
+    gen = torch.Generator().manual_seed(3)
+    rows = {"kv4_encode": [], "kv4_decode": []}
+
+    def bits(v):
+        return v.view(torch.int16) if v.element_size() == 2 else v.view(
+            torch.int32)
+
+    for r, hd in ((B * 3, 64), (8192, 64)):
+        for dt in (torch.bfloat16, torch.float32):
+            t = (torch.randn(r, hd, generator=gen)
+                 * torch.rand(r, 1, generator=gen) * 4).to(dev, dt)
+            t[0] = 0.0
+            p, sc = k45.kv4_encode_2d_cuda(t)
+            pp, sp = k45.kv4_encode_2d_plain(t)
+            if not (torch.equal(p, pp) and torch.equal(bits(sc), bits(sp))):
+                fail(f"kv4_encode ({r},{hd}) {dt}: not bit-exact "
+                     f"({int((p != pp).sum())} bytes, "
+                     f"{int((bits(sc) != bits(sp)).sum())} scales differ)")
+            ms = cuda_ms(lambda: k45.kv4_encode_2d_cuda(t))
+            plain_ms = cuda_ms(lambda: k45.kv4_encode_2d_plain(t))
+            b_ms, b_by = bound(20.0 * r * hd, t.element_size() * r * hd
+                               + r * hd // 2 + 2 * r, PEAK_F32_PER_S)
+            rows["kv4_encode"].append(dict(
+                shape=f"({r},{hd}) {str(dt)[6:]}", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None))
+    for r, hh in ((B * 64 * 3, 32), (B * 2048 * 3, 32)):
+        p = torch.randint(0, 256, (r, hh), generator=gen,
+                          dtype=torch.uint8).to(dev)
+        sc = (torch.rand(r, generator=gen) * 8).to(dev, torch.float16)
+        for dt in (torch.float32, torch.bfloat16):
+            got = k45.kv4_decode_2d_cuda(p, sc, dt)
+            want = k45.kv4_decode_2d_plain(p, sc, dt)
+            if not torch.equal(bits(got), bits(want)):
+                fail(f"kv4_decode ({r},{hh}) {dt}: not bit-exact "
+                     f"({int((bits(got) != bits(want)).sum())} differ)")
+        ms = cuda_ms(lambda: k45.kv4_decode_2d_cuda(p, sc, torch.bfloat16))
+        plain_ms = cuda_ms(
+            lambda: k45.kv4_decode_2d_plain(p, sc, torch.bfloat16))
+        b_ms, b_by = bound(8.0 * r * 2 * hh, r * hh + 2 * r + 2 * r * 2 * hh,
+                           PEAK_F32_PER_S)
+        rows["kv4_decode"].append(dict(
+            shape=f"({r},{hh}) -> bf16", max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
+    return rows
+
+
+LM_ARGV = ["--arch", "smollm-135m", "--quant", "w4", "--act-quant", "fp4",
+           "--kv", "fp4", "--batch", str(B), "--prompt-len", "32",
+           "--gen-len", "32", "--device", "cuda"]
+
+
+def serve_lm() -> dict:
+    """Phase 7: smollm-135m at full width (30 layers, random weights from
+    the seed) through its launcher: W4A4 at every dense site, an FP4 KV
+    cache, batch 8, 32 prompt tokens stepped in, 32 greedy tokens out.
+    Only kernel routes may run, apart from the tied LM head's product."""
+    import torch
+    from repro_torch.launch import serve
+    print("--- serve: smollm-135m W4A4 FP4-KV", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = serve.main(LM_ARGV)
+    counts = launch_counts()
+    check_path("smollm-135m serve", counts, LM_KERNELS,
+               {("tied_logits", "torch")})
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"serve smollm-135m: {out['tok_s']:.2f} tok/s decode at batch "
+          f"{B}, prefill {out['prefill_s']:.3f}s, decode "
+          f"{out['decode_s']:.3f}s, max_memory_allocated {peak:.1f} MiB, "
+          f"launches {counts}", flush=True)
+    return {"counts": counts, "tok_s": out["tok_s"], "peak_mib": peak,
+            "launches_per_step": out["launches_per_step"],
+            "units": out["steps"]}
+
+
+LM_LIMITS = {"float32": "relative Frobenius error <= 1e-3 and at most 1% "
+                        "of the logits off by more than 1e-4 of max |logit|",
+             "bfloat16": "relative Frobenius error <= 2e-2"}
+
+
+def lm_checks(dev, steps: int = 4) -> dict:
+    """Phase 8: smollm-135m at full width, W4A4 with the FP4 cache,
+    ``steps`` teacher-forced decode steps at batch 8 through the kernels on
+    the card and through the plain versions on the CPU (both sides in
+    torch), in f32 and in bf16, each held to its limit (``LM_LIMITS``: the
+    forward tolerance in f32, the JAX parity tests' bf16 limit in bf16).
+    The held runs use ``steps.dyadic_weights``, so the W4A4 sums are exact
+    and the kernels' arithmetic alone is compared; the same steps on the
+    random weights are reported too (there the order of the sums decides
+    FP4 and act-grid ties). Then one bf16 decode step of the serve
+    configuration, timed without the profiler and then profiled: the idle
+    share is reported against both wall times."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.smollm_135m import full
+    from repro_torch.launch.steps import (dyadic_weights, make_decode_fn,
+                                          quantize_lm_for_serving)
+    from repro_torch.models.lm import init_caches, lm_init
+    from repro_torch.quant.calibrate import QuantContext
+    from repro_torch.quant.fakequant import QuantizerParams
+    from repro_torch.serving.weight_bank import _tree_to
+    toks = torch.randint(0, full().vocab, (B, steps),
+                         generator=torch.Generator().manual_seed(1))
+
+    def run(cfg, packed, device):
+        ctx = QuantContext("serve", act_qps={"*": QuantizerParams(
+            0, 2, 1, 4, torch.tensor(6.0, device=device))})
+        p, step = _tree_to(packed, device), make_decode_fn(cfg, ctx=ctx)
+        caches = init_caches(cfg, B, steps, device)
+        out = []
+        with torch.inference_mode():
+            for i in range(steps):
+                lg, caches = step(p, caches, toks[:, i:i + 1].to(device), i)
+                out.append(lg.cpu())
+        return torch.stack(out).double().numpy()
+
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(full(), dtype=dt, kv_dtype="fp4")
+        raw = lm_init(torch.Generator().manual_seed(0), cfg)
+        dname = str(dt)[6:]
+        for kind, params in (("dyadic", dyadic_weights(raw)), ("random", raw)):
+            packed = quantize_lm_for_serving(params)
+            g = run(cfg, packed, dev)
+            w = run(cfg, packed, torch.device("cpu"))
+            if not np.isfinite(g).all():
+                fail(f"smollm-135m {dname} decode on the card ({kind} "
+                     "weights) is not finite")
+            rel = float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+            atol = 1e-4 * float(np.abs(w).max())
+            off = float(np.mean(np.abs(g - w) > atol))
+            same = bool((g.argmax(-1) == w.argmax(-1)).all())
+            per_step = [float(np.linalg.norm(g[i] - w[i])
+                              / np.linalg.norm(w[i])) for i in range(steps)]
+            print(f"decode smollm-135m {dname} W4A4 FP4-KV B={B}, {steps} "
+                  f"teacher-forced steps, {kind} weights: card vs CPU plain: "
+                  f"relative Frobenius error {rel:.3g}, max abs err "
+                  f"{float(np.abs(g - w).max()):.3g}, {off:.4%} of logits "
+                  f"off by > {atol:.3g} (1e-4 of max |logit|), argmax equal "
+                  f"{same}, per step {' '.join(f'{e:.3g}' for e in per_step)}"
+                  + (f"; held to {LM_LIMITS[dname]}" if kind == "dyadic"
+                     else "; not held"), flush=True)
+            res[f"{dname}_{kind}"] = {"rel_frobenius": rel, "frac_off": off,
+                                      "argmax_equal": same,
+                                      "per_step": per_step}
+    f32, bf16 = res["float32_dyadic"], res["bfloat16_dyadic"]
+    if f32["rel_frobenius"] > 1e-3 or f32["frac_off"] > 0.01:
+        fail("full-width f32 decode on the card disagrees with the plain CPU "
+             "decode")
+    if bf16["rel_frobenius"] > 2e-2:
+        fail("full-width bf16 decode on the card disagrees with the plain "
+             "CPU decode")
+
+    # one decode step of the serve configuration (bf16, B 8, 64-slot cache
+    # half full): median of 10 unprofiled steps, then one profiled step
+    cfg = dataclasses.replace(full(), kv_dtype="fp4")
+    p = quantize_lm_for_serving(lm_init(torch.Generator().manual_seed(0),
+                                        cfg, dev))
+    ctx = QuantContext("serve", act_qps={"*": QuantizerParams(
+        0, 2, 1, 4, torch.tensor(6.0, device=dev))})
+    step = make_decode_fn(cfg, ctx=ctx)
+    caches = init_caches(cfg, B, 64, dev)
+    tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        for i in range(32):
+            step(p, caches, tok, i)
+        torch.cuda.synchronize()
+        plain_walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            step(p, caches, tok, 32)
+            torch.cuda.synchronize()
+            plain_walls.append((time.perf_counter() - t0) * 1e3)
+        step_ms = sorted(plain_walls)[len(plain_walls) // 2]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(p, caches, tok, 32)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, top = device_time(prof)
+    print(f"profile decode step smollm-135m B={B}: unprofiled wall "
+          f"{step_ms:.3f} ms (median of 10), profiled wall {wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / step_ms:.3f}"
+          f" of the unprofiled step ({1 - busy_ms / wall_ms:.3f} of the "
+          f"profiled one)", flush=True)
+    for line in top:
+        print(line, flush=True)
+    res.update(step_ms=step_ms, profile_wall_ms=wall_ms,
+               profile_device_busy_ms=busy_ms,
+               idle_share=1 - busy_ms / step_ms,
+               idle_share_profiled=1 - busy_ms / wall_ms)
+    return res
+
+
+def device_time(prof, n_top: int = 8):
+    """Device busy ms (kernel rows of the profile: an aten op's row repeats
+    its kernels' device time) and the top kernels' lines."""
+    import torch
+
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    # kernel rows only: an aten op's row repeats its kernels' device time
     evs = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA
            and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in evs) / 1e3
-    top = sorted(evs, key=dev_us, reverse=True)[:8]
-    print(f"profile forward ddim-cifar10 B={B}: wall {wall_ms:.3f} ms, "
-          f"device busy {busy_ms:.3f} ms, idle share "
-          f"{1 - busy_ms / wall_ms:.3f}", flush=True)
-    for e in top:
-        print(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}",
-              flush=True)
-    return {"rel_frobenius": rel, "frac_off": off,
-            "profile_wall_ms": wall_ms, "profile_device_busy_ms": busy_ms}
+    top = sorted(evs, key=dev_us, reverse=True)[:n_top]
+    return busy_ms, [f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
+                     f"{e.key[:90]}" for e in top]
 
 
 def main() -> None:
@@ -412,6 +668,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
     rows = kernel_checks(dev)
+    rows.update(kv4_checks(dev))
     for name, rs in rows.items():
         for r in rs:
             print(f"kernel {name} {r['shape']}: {r['ms']:.4f} ms, plain "
@@ -427,9 +684,20 @@ def main() -> None:
     wall = serve("8 requests x 10 steps, wall clock", [
         "--preset", "ddim-cifar10", "--requests", "8", "--steps", "10",
         "--max-batch", "8", "--device", "cuda"])
-    launches = {k: golden["counts"][k] + wall["counts"][k]
-                for k in golden["counts"]}
     fwd = forward_checks(dev)
+    lm_serve = serve_lm()
+    lm = lm_checks(dev)
+    # each path's own launches, per forward (diffusion) or per decode step
+    # (LM: prompt steps and generated steps alike)
+    paths = (("ddim-cifar10 golden trace", golden, "per_forward"),
+             ("ddim-cifar10 8x10", wall, "per_forward"),
+             ("smollm-135m serve", lm_serve, "per_decode_step"))
+    by_path = {k: {name: {"launches": run["counts"][k],
+                          unit: run["counts"][k] / run["units"]}
+                   for name, run, unit in paths if run["counts"][k]}
+               for k in golden["counts"]}
+    launches = {k: sum(v["launches"] for v in by_path[k].values())
+                for k in by_path}
 
     source = "src/repro_torch/kernels/csrc/"
     meta = {"msfp_qdq": (source + "msfp_quant.cu",
@@ -437,13 +705,18 @@ def main() -> None:
             "w4a4_matmul": (source + "w4_matmul.cu",
                             "src/repro/kernels/w4_matmul.py:240"),
             "w4a4_conv2d": (source + "conv.cu",
-                            "src/repro/kernels/conv.py:232")}
+                            "src/repro/kernels/conv.py:232"),
+            "kv4_encode": (source + "kv4.cu",
+                           "src/repro/kernels/kv4.py:65"),
+            "kv4_decode": (source + "kv4.cu",
+                           "src/repro/kernels/kv4.py:86")}
     kernels = []
     for name, rs in rows.items():
-        head = rs[0]        # the main path's heaviest shape of this kernel
+        head = rs[0]        # the first main path's shape of this kernel
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],
+            "launches_by_path": by_path[name],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -457,7 +730,12 @@ def main() -> None:
                       "serve": {"golden_digest": golden["out"]["digest"],
                                 "wall_req_per_s": wall["out"]["summary"][
                                     "requests"] / wall["out"]["wall_s"]},
-                      "forward": fwd}), flush=True)
+                      "forward": fwd,
+                      "lm": {"tok_s": lm_serve["tok_s"],
+                             "peak_mib": lm_serve["peak_mib"],
+                             "launches_per_step":
+                                 lm_serve["launches_per_step"], **lm}}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

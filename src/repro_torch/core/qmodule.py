@@ -56,22 +56,25 @@ def encode_codes(w: torch.Tensor, fmt: FPFormat, maxval, zero_point=0.0
     else:
         y = (w - _f32(zero_point, w.device)) * inv
         y = torch.where(y < 0, torch.zeros_like(y), y)
-    v = snap_to_base_grid(y, fmt)
-    man = fmt.man_bits
-    if fmt.exp_bits == 0:
-        code = torch.round(v * 2**man).to(torch.int32)
-    else:
-        # v lies on the grid: recover (p, m) exactly.
-        oct_ = octave(v, fmt.exp_bits)
-        is_sub = v < 1.0
-        p = torch.where(is_sub, torch.zeros_like(oct_), oct_ + 1)
-        m_sub = torch.round(v * 2**man)
-        m_norm = torch.round((v / pow2(oct_) - 1.0) * 2**man)
-        m = torch.where(is_sub, m_sub, m_norm).to(torch.int32)
-        code = (p << man) | m
+    code = grid_codes(snap_to_base_grid(y, fmt), fmt)
     if fmt.signed:
         code = code | (sign << (fmt.exp_bits + fmt.man_bits))
     return code.to(torch.uint8)
+
+
+def grid_codes(v: torch.Tensor, fmt: FPFormat) -> torch.Tensor:
+    """Base-grid points ``v >= 0`` -> unsigned int32 codes: ``v`` lies on
+    the grid, so (p, m) come back exactly."""
+    man = fmt.man_bits
+    if fmt.exp_bits == 0:
+        return torch.round(v * 2**man).to(torch.int32)
+    oct_ = octave(v, fmt.exp_bits)
+    is_sub = v < 1.0
+    p = torch.where(is_sub, torch.zeros_like(oct_), oct_ + 1)
+    m_sub = torch.round(v * 2**man)
+    m_norm = torch.round((v / pow2(oct_) - 1.0) * 2**man)
+    m = torch.where(is_sub, m_sub, m_norm).to(torch.int32)
+    return (p << man) | m
 
 
 def decode_magnitudes(code: torch.Tensor, fmt: FPFormat) -> torch.Tensor:

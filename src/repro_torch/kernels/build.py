@@ -20,7 +20,7 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("msfp_quant", "w4_matmul", "conv")
+SOURCES = ("msfp_quant", "w4_matmul", "conv", "kv4")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -35,6 +35,8 @@ SIGNATURES = {
     "w4_conv2d_launch": ("conv",
                          [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I,
                           I, I, I, I, P, P, I, I, I, I, I, P, P]),
+    "kv4_encode_launch": ("kv4", [P, P, P, I, I, I, P]),
+    "kv4_decode_launch": ("kv4", [P, P, P, LL, I, I, P]),
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,7 @@
-// MSFP arithmetic shared by the three kernels: the act snap (port of
-// src/repro/kernels/msfp_quant.py:_qdq_block) and the nibble decode (port of
-// src/repro/kernels/w4_matmul.py:_decode_block).
+// MSFP arithmetic shared by the kernels: the act snap (port of
+// src/repro/kernels/msfp_quant.py:_qdq_block), the nibble decode (port of
+// src/repro/kernels/w4_matmul.py:_decode_block) and the E2M1 code <->
+// magnitude maps that the KV-cache codec (kv4.cu) also uses.
 //
 // Bit-exactness with the plain PyTorch versions (quant/fakequant.py:fp_qdq,
 // core/qmodule.py:decode_codes) rests on three rules:
@@ -104,6 +105,31 @@ __device__ __forceinline__ WCol wcol(const WQ& w, int n, int N) {
   return c;
 }
 
+// Unsigned code [p | m] -> base-grid magnitude: p = 0 is subnormal m/2^M,
+// p >= 1 is 2^(p-1) * (1 + m/2^M) (formats.py:quant_codes). Exact.
+__device__ __forceinline__ float decode_mag(int code, int exp_bits,
+                                            int man_bits) {
+  const int p = code >> man_bits;
+  const float m = (float)(code & ((1 << man_bits) - 1));
+  const float frac = __fmul_rn(m, pow2i(-man_bits));
+  return (exp_bits == 0 || p == 0)
+             ? frac : __fmul_rn(pow2i(p - 1), __fadd_rn(1.f, frac));
+}
+
+// A base-grid point v >= 0 -> its unsigned code, the inverse of decode_mag
+// (qmodule.py:grid_codes): v lies on the grid, so (p, m) come back exactly.
+__device__ __forceinline__ int encode_mag(float v, int exp_bits,
+                                          int man_bits) {
+  const float two_m = pow2i(man_bits);
+  if (exp_bits == 0) return (int)rintf(__fmul_rn(v, two_m));
+  if (v < 1.f) return (int)rintf(__fmul_rn(v, two_m));
+  int oct = (int)((__float_as_uint(v) >> 23) & 0xFFu) - 127;
+  const int max_oct = (1 << exp_bits) - 2;
+  oct = oct < 0 ? 0 : (oct > max_oct ? max_oct : oct);
+  const float frac = __fsub_rn(__fmul_rn(v, pow2i(-oct)), 1.f);
+  return ((oct + 1) << man_bits) | (int)rintf(__fmul_rn(frac, two_m));
+}
+
 // code -> mag * (scale * rcp(base_max)), negated by the sign bit for signed
 // formats (w4_matmul.py:_decode_block). An unsigned format's zero-point is
 // not decoded here: the GEMM adds it as the rank-1 term zp_n * rowsum(A).
@@ -114,12 +140,7 @@ __device__ __forceinline__ float decode(int code, const WQ& w, const WCol& c) {
     sign = (code >> nbits) & 1;
     code &= (1 << nbits) - 1;
   }
-  const int p = code >> w.man_bits;
-  const float m = (float)(code & ((1 << w.man_bits) - 1));
-  const float frac = __fmul_rn(m, pow2i(-w.man_bits));
-  const float mag = (w.exp_bits == 0 || p == 0)
-                        ? frac : __fmul_rn(pow2i(p - 1), __fadd_rn(1.f, frac));
-  const float v = __fmul_rn(mag, c.sc);
+  const float v = __fmul_rn(decode_mag(code, w.exp_bits, w.man_bits), c.sc);
   return sign ? -v : v;
 }
 

@@ -1,9 +1,9 @@
 """Kernel dispatch; port of ``repro.kernels.ops``.
 
 Every op dispatches on its input's device: a CUDA tensor launches the
-hand-written kernel (K1 ``msfp_quant``, K2 ``w4_matmul``, K3 ``conv``) or
-raises, a CPU tensor takes the kernel's plain PyTorch version. There is no
-fallback from a failed kernel to the plain version.
+hand-written kernel (K1 ``msfp_quant``, K2 ``w4_matmul``, K3 ``conv``,
+K4/K5 ``kv4``) or raises, a CPU tensor takes the kernel's plain PyTorch
+version. There is no fallback from a failed kernel to the plain version.
 
 The branches that no kernel covers keep the reference's rules (INT-affine
 or per-channel act params, stacked packs -> ``kernels/ref.py``; the dense
@@ -11,9 +11,9 @@ f32 conv/matmul of bf16-fallback weights) and, like every other decision
 here, go through ``_dispatch``, which counts it in ``ROUTES`` under
 ``(op, route)``. Route labels: ``cuda`` / ``cuda:implicit`` /
 ``cuda:im2col`` (a kernel), ``plain`` / ``plain:*`` (a kernel's plain
-version on the CPU), ``ref`` (an off-kernel oracle) and ``torch_f32``
+version on the CPU), ``ref`` (an off-kernel oracle), ``torch_f32``
 (the dense f32 product at the io sites, which the reference leaves to XLA
-too).
+too) and ``torch`` (the tied LM head's readout product, likewise).
 
 ``CONV_ROUTE``: ``"implicit"`` (the implicit-GEMM kernel K3) or
 ``"im2col"`` (unfold + K2).
@@ -29,6 +29,7 @@ from repro_torch.core.qmodule import PackedW4
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.conv import (conv2d_nhwc, w4a4_conv2d_im2col,
                                       w4a4_conv2d_implicit)
+from repro_torch.kernels.kv4 import kv4_decode_2d, kv4_encode_2d
 from repro_torch.kernels.msfp_quant import msfp_qdq
 from repro_torch.kernels.w4_matmul import w4_matmul_2d
 from repro_torch.quant.fakequant import (KIND_FP_SIGNED, KIND_FP_UNSIGNED,
@@ -161,3 +162,30 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         with no_tf32():
             return x @ w.to(x.dtype)
     return _dispatch("matmul", "torch_f32", run)
+
+
+def tied_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``x @ table.T`` in x.dtype: the tied LM head's readout, a plain
+    product (f32 with TF32 off, or bf16 with f32 accumulation)."""
+    def run():
+        with no_tf32():
+            return x @ table.to(x.dtype).T
+    return _dispatch("tied_logits", "torch", run)
+
+
+def kv4_encode(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """t: (..., hd) -> packed (..., hd/2) uint8 + scale (...,) f16 (K4)."""
+    lead, hd = t.shape[:-1], t.shape[-1]
+    packed, scale = _dispatch("kv4_encode", _kernel_label(t),
+                              lambda: kv4_encode_2d(t.reshape(-1, hd)))
+    return packed.reshape(*lead, hd // 2), scale.reshape(lead)
+
+
+def kv4_decode(packed: torch.Tensor, scale: torch.Tensor,
+               dtype=torch.bfloat16) -> torch.Tensor:
+    """packed (..., hd/2) + scale (...,) -> (..., hd) ``dtype`` (K5)."""
+    lead, hh = packed.shape[:-1], packed.shape[-1]
+    out = _dispatch("kv4_decode", _kernel_label(packed),
+                    lambda: kv4_decode_2d(packed.reshape(-1, hh),
+                                          scale.reshape(-1), dtype))
+    return out.reshape(*lead, 2 * hh)

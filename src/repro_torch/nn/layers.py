@@ -1,5 +1,5 @@
-"""Functional layers over plain param dicts; port of the UNet's part of
-``repro.nn.layers`` (dense, NHWC/HWIO conv2d, group norm, silu).
+"""Functional layers over plain param dicts; port of ``repro.nn.layers``
+(dense, NHWC/HWIO conv2d, group/rms/layer norm, activations).
 
 Quantization hooks as in the reference: ``ctx`` (a ``QuantContext``)
 supplies the serve-mode act quantizer per site, and a weight is a dense
@@ -8,6 +8,7 @@ tensor or a ``PackedW4`` (serving form), dispatched to the kernels here.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.qmodule import PackedW4
 from repro_torch.kernels import ops
@@ -22,11 +23,12 @@ def _maybe_quant_act(ctx: QuantContext | None, site: str | None, x):
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
                bias: bool = False, scale: float | None = None,
-               device="cpu") -> dict:
+               device="cpu", dtype=torch.float32) -> dict:
     scale = scale if scale is not None else d_in ** -0.5
-    p = {"w": (torch.randn((d_in, d_out), generator=gen) * scale).to(device)}
+    w = torch.randn((d_in, d_out), generator=gen) * scale
+    p = {"w": w.to(device=device, dtype=dtype)}
     if bias:
-        p["b"] = torch.zeros((d_out,), device=device)
+        p["b"] = torch.zeros((d_out,), device=device, dtype=dtype)
     return p
 
 
@@ -98,5 +100,48 @@ def groupnorm_apply(p: dict, x: torch.Tensor, *, groups: int = 32,
     return (n * p["g"] + p["b"]).to(x.dtype)
 
 
+def rmsnorm_init(dim: int, dtype=torch.float32, device="cpu") -> dict:
+    return {"g": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm_apply(p: dict, x: torch.Tensor, *, eps: float = 1e-6,
+                  plus_one: bool = False) -> torch.Tensor:
+    """RMS norm in f32, cast back to x.dtype; ``plus_one``: the gemma
+    convention, which stores g - 1."""
+    xf = x.to(torch.float32)
+    n = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    g = p["g"].to(torch.float32)
+    g = g + 1.0 if plus_one else g
+    return (n * g).to(x.dtype)
+
+
+def layernorm_init(dim: int, dtype=torch.float32, device="cpu") -> dict:
+    return {"g": torch.ones((dim,), dtype=dtype, device=device),
+            "b": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm_apply(p: dict, x: torch.Tensor, *, eps: float = 1e-5
+                    ) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    n = (xf - mu) * torch.rsqrt(var + eps)
+    return (n * p["g"].to(torch.float32)
+            + p["b"].to(torch.float32)).to(x.dtype)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+# ``jax.nn.gelu`` defaults to the tanh approximation, so "gelu" is it too.
+ACTIVATIONS = {
+    "silu": silu,
+    "gelu": gelu_tanh,
+    "gelu_tanh": gelu_tanh,
+    "relu": torch.relu,
+}
