@@ -21,8 +21,16 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("msfp_quant", "w4_matmul", "conv", "kv4")
+# K2/K3's tiles (csrc/w4_gemm.cuh): cfg -> (act rows, packed byte columns
+# (each two output columns), k step, threads), 0 = Large, 1 = Small,
+# 2 = Medium. nvcc gets them as -DW4_TILE<cfg>_ROWS=... (one macro a value:
+# nvcc splits a -D value at commas); kernels/w4_matmul.py plans launches
+# with the same table.
+GEMM_TILES = {0: (128, 64, 32, 256), 1: (8, 32, 32, 128), 2: (64, 32, 32, 256)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC",
+              *(f"-DW4_TILE{c}_{name}={v}" for c, t in GEMM_TILES.items()
+                for name, v in zip(("ROWS", "BJ", "BK", "NT"), t)))
 
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: name -> (library, argtypes); every one returns the
@@ -31,10 +39,10 @@ SIGNATURES = {
     "msfp_qdq_launch": ("msfp_quant", [P, P, LL, P, P, I, I, I, I, P]),
     "w4_matmul_launch": ("w4_matmul",
                          [P, P, P, P, I, I, I, I, I, I, I, P, P, I, I, I, I,
-                          I, P, P]),
+                          I, I, I, P, P, P]),
     "w4_conv2d_launch": ("conv",
                          [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I,
-                          I, I, I, I, P, P, I, I, I, I, I, P, P]),
+                          I, I, I, I, P, P, I, I, I, I, I, I, I, P, P, P]),
     "kv4_encode_launch": ("kv4", [P, P, P, I, I, I, P]),
     "kv4_decode_launch": ("kv4", [P, P, P, LL, I, I, P]),
 }

@@ -26,7 +26,8 @@ from repro_torch.common.device import no_tf32
 from repro_torch.core.qmodule import PackedW4, decode_codes, unpack_nibbles
 from repro_torch.kernels import build
 from repro_torch.kernels.msfp_quant import check_input
-from repro_torch.kernels.w4_matmul import (act_operands, w4_matmul_2d,
+from repro_torch.kernels.w4_matmul import (act_operands, gemm_plan,
+                                           split_workspace, w4_matmul_2d,
                                            weight_operands, zero_point_term)
 from repro_torch.quant.fakequant import (KIND_FP_SIGNED, QuantizerParams,
                                          apply_qdq)
@@ -106,7 +107,10 @@ def w4a4_conv2d_implicit_plain(x: torch.Tensor, pw: PackedW4,
 
 def w4a4_conv2d_implicit_cuda(x: torch.Tensor, pw: PackedW4,
                               act_qp: QuantizerParams | None, *, stride,
-                              padding) -> torch.Tensor:
+                              padding, plan: tuple[int, int] | None = None
+                              ) -> torch.Tensor:
+    """The kernel; ``plan`` forces one of ``gemm_candidates`` instead of
+    ``gemm_plan``'s pick."""
     dtype = check_input(x, "w4a4_conv2d")
     kh, kw, cin, cout = pw.shape
     if x.ndim != 4 or x.shape[-1] != cin:
@@ -125,11 +129,15 @@ def w4a4_conv2d_implicit_cuda(x: torch.Tensor, pw: PackedW4,
         act_qp.kind == KIND_FP_SIGNED)
     act_args, _keep = act_operands(act, x)
     out = torch.empty((b, oh, ow, cout), dtype=x.dtype, device=x.device)
+    m = b * oh * ow
+    kdim = kh * kw * cin
+    _ws, plan_args = split_workspace(plan or gemm_plan(m, cout, kdim), m,
+                                     cout, x)
     rc = build.function("w4_conv2d_launch")(
         x.data_ptr(), packed.data_ptr(), sc.data_ptr(), zp.data_ptr(),
         s_stride, b, h, w, cin, oh, ow, kh, kw, stride[0], stride[1], ph0, pw0,
         cout, pw.exp_bits, pw.man_bits, int(pw.signed), *act_args, dtype,
-        out.data_ptr(),
+        *plan_args, out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "w4a4_conv2d")
     w4a4_conv2d_implicit_cuda.launches += 1

@@ -4,12 +4,14 @@
 // magnitude maps that the KV-cache codec (kv4.cu) also uses.
 //
 // Bit-exactness with the plain PyTorch versions (quant/fakequant.py:fp_qdq,
-// core/qmodule.py:decode_codes) rests on three rules:
+// core/qmodule.py:decode_codes) rests on these rules:
 //   * the octave comes from the exponent bits and the step is built from
 //     bits (no log2f/exp2f), as quant/formats.py does;
 //   * rounding is rintf (half to even), never roundf;
 //   * every product/sum that the reference rounds separately is an
 //     explicit __fmul_rn/__fadd_rn, so nvcc cannot contract it into an FMA;
+//   * a division by a power of two is a multiply by its exact reciprocal
+//     (the snap's y / step is y * 2^-e): same real result, same rounding;
 //   * maxval / base_max is maxval * rcp(base_max), and the unsigned
 //     q * scale + zp is one __fmaf_rn, as compiled XLA (and the Pallas
 //     kernels) compute them (fakequant.py:grid_scale, fakequant.py:fma).
@@ -44,8 +46,9 @@ __device__ __forceinline__ float snap_base(float y, int exp_bits, int man_bits,
     ex = ex < 0 ? 0 : (ex > max_oct ? max_oct : ex);
     e = ex - man_bits;
   }
-  const float step = pow2i(e);
-  const float q = __fmul_rn(rintf(__fdiv_rn(y, step)), step);
+  // y / step as y * 2^-e: step is an exact power of two, so the product
+  // and the quotient are the same real number and round to the same bits
+  const float q = __fmul_rn(rintf(__fmul_rn(y, pow2i(-e))), pow2i(e));
   return q > bmax ? bmax : q;
 }
 

@@ -5,10 +5,16 @@ CUDA kernel ``csrc/w4_matmul.cu`` (replaces the TPU kernels
 its plain PyTorch version: qdq the act, decode the weight to f32, matmul,
 add an unsigned weight's zero-point as the rank-1 term
 ``zp_n * sum_k x_q[i, k]`` (as the TPU kernel does), cast to ``x.dtype``.
-The kernel, its plain version and the TPU kernel differ only in the order
-of the f32 sums.
+The kernel multiplies exact bf16 grid operands on the tensor cores and
+applies the scales to its f32 sums, so it differs from its plain version
+(and from the TPU kernel's f32 path) only by per-term roundings of the
+scales and the order of the f32 sums; with power-of-two scales and grid
+acts the two agree bit for bit. ``gemm_plan`` picks the kernel's tile and
+its split of K.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -17,6 +23,72 @@ from repro_torch.kernels import build
 from repro_torch.kernels.msfp_quant import check_input, scalar_operand
 from repro_torch.quant.fakequant import fp_qdq
 from repro_torch.quant.formats import FPFormat
+
+
+LARGE, SMALL, MEDIUM = 0, 1, 2     # K2/K3's tiles, build.GEMM_TILES
+TILES = build.GEMM_TILES           # cfg -> (rows, byte columns, k step, threads)
+SMS = 132                          # streaming multiprocessors of an H100
+MIN_STEPS = {LARGE: 3, SMALL: 1, MEDIUM: 2}   # k steps a split keeps
+
+
+def tiles_for(m: int) -> tuple[int, ...]:
+    """The tiles an (m, k) x (k, n) launch may take: Small (y^T = W^T x^T)
+    exactly when m fits its rows."""
+    return (SMALL,) if m <= TILES[SMALL][0] else (LARGE, MEDIUM)
+
+
+def _k_steps(cfg: int, k: int) -> int:
+    return -(-k // TILES[cfg][2])
+
+
+def _splits(steps: int, per: int) -> int:
+    """Splits of ``per`` steps each (the last may be shorter, none empty)."""
+    return -(-steps // per) if steps else 1
+
+
+def gemm_candidates(m: int, n: int, k: int) -> list[tuple[int, int]]:
+    """Every (cfg, splits) a launch over (m, k) x (k, n) accepts: each tile
+    ``tiles_for(m)`` with each split count whose splits are all non-empty.
+    (``python -m repro_torch.kernels.sweep`` times them.)"""
+    out = []
+    for cfg in tiles_for(m):
+        steps = _k_steps(cfg, k)
+        out += [(cfg, s) for s in sorted({_splits(steps, per) for per in
+                                          range(1, max(steps, 1) + 1)})]
+    return out
+
+
+def gemm_plan(m: int, n: int, k: int) -> tuple[int, int]:
+    """(cfg, splits) of a K2/K3 launch over an (m, k) x (k, n) product, one
+    of ``gemm_candidates``.
+
+    Small serves m <= 8; Large the products with K >= 1024 and at least 32
+    Large tiles, where the act snap's arithmetic is the cost and a big tile
+    spreads it over more columns; Medium the rest, where latency is the
+    cost and more, smaller blocks win. K is then split into as many splits
+    as fit one wave of 2 x 132 blocks, each keeping at least ``MIN_STEPS``
+    k steps. The splits' f32 partials are summed in split order. The
+    thresholds come from ``kernels.sweep`` (its table is in PERF.md)."""
+    half = n // 2
+    large_tiles = -(-m // TILES[LARGE][0]) * -(-half // TILES[LARGE][1])
+    tiles = tiles_for(m)
+    cfg = tiles[0] if len(tiles) == 1 else (
+        LARGE if k >= 1024 and large_tiles >= 32 else MEDIUM)
+    rows, bj, _, _ = TILES[cfg]
+    blocks = -(-m // rows) * -(-half // bj)
+    steps = _k_steps(cfg, k)
+    want = max(1, 2 * SMS // max(blocks, 1))
+    return cfg, _splits(steps, max(MIN_STEPS[cfg], -(-steps // want)))
+
+
+def split_workspace(cfg_splits, m: int, n: int, like: torch.Tensor):
+    """The f32 (splits, m, n) partials of a split launch (None for one
+    split) and the kernel's (cfg, splits, workspace pointer) arguments."""
+    cfg, splits = cfg_splits
+    if splits == 1:
+        return None, (cfg, 1, 0)
+    ws = torch.empty(splits * m * n, dtype=torch.float32, device=like.device)
+    return ws, (cfg, splits, ws.data_ptr())
 
 
 def weight_operands(packed: torch.Tensor, scale, zero_point, n: int,
@@ -79,7 +151,10 @@ def w4_matmul_2d_plain(x, packed, scale, zero_point=0.0, act=None, *,
 
 
 def w4_matmul_2d_cuda(x, packed, scale, zero_point=0.0, act=None, *,
-                      exp_bits: int, man_bits: int, signed: bool = True):
+                      exp_bits: int, man_bits: int, signed: bool = True,
+                      plan: tuple[int, int] | None = None):
+    """The kernel; ``plan`` forces one of ``gemm_candidates`` instead of
+    ``gemm_plan``'s pick."""
     dtype = check_input(x, "w4_matmul")
     if x.ndim != 2 or packed.ndim != 2 or x.shape[1] != packed.shape[0]:
         raise ValueError(f"w4_matmul: x {tuple(x.shape)} vs packed "
@@ -89,9 +164,10 @@ def w4_matmul_2d_cuda(x, packed, scale, zero_point=0.0, act=None, *,
     packed, sc, zp, stride = weight_operands(packed, scale, zero_point, n, x)
     act_args, _keep = act_operands(act, x)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    _ws, plan_args = split_workspace(plan or gemm_plan(m, n, k), m, n, x)
     rc = build.function("w4_matmul_launch")(
         x.data_ptr(), packed.data_ptr(), sc.data_ptr(), zp.data_ptr(), stride,
-        m, n, k, exp_bits, man_bits, int(signed), *act_args, dtype,
+        m, n, k, exp_bits, man_bits, int(signed), *act_args, dtype, *plan_args,
         out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "w4_matmul")

@@ -6,7 +6,9 @@ there with ``python -m pytest -m gpu tests/test_torch_gpu.py``. The
 decision is taken inside a fixture, never at import.
 
 Tolerances: K1, K4 and K5 bit-exact; K2/K3 rtol = atol = 1e-5, the order
-of the f32 sums being the only difference; an LM decode on the card vs the
+of the f32 sums and per-term roundings of the scales being the only
+differences (at long K, or the f32 sum-order bound where larger, as
+chip_smoke.py:check_close; bit-exact on power-of-two scales); an LM decode on the card vs the
 CPU as in tests/test_torch_lm.py (f32: 1e-4 of max |logit|, same argmax;
 bf16: relative Frobenius error 2e-2)."""
 import dataclasses
@@ -15,7 +17,8 @@ import pytest
 import torch
 
 from repro_torch.configs.smollm_135m import smoke as smollm_smoke
-from repro_torch.core.qmodule import pack_weight
+from repro_torch.core.qmodule import (PackedW4, decode_codes, pack_weight,
+                                      unpack_nibbles)
 from repro_torch.kernels import conv as k3
 from repro_torch.kernels import kv4 as k45
 from repro_torch.kernels import msfp_quant as k1
@@ -25,7 +28,8 @@ from repro_torch.launch.steps import (dyadic_weights, make_decode_fn,
                                       quantize_lm_for_serving)
 from repro_torch.models.lm import init_caches, lm_init
 from repro_torch.quant.calibrate import QuantContext
-from repro_torch.quant.fakequant import QuantizerParams
+from repro_torch.quant.fakequant import QuantizerParams, apply_qdq, fp_qdq
+from repro_torch.quant.formats import FPFormat
 from repro_torch.serving.weight_bank import _tree_to
 
 S, U = 0, 1
@@ -175,3 +179,156 @@ def test_lm_decode_on_card_matches_cpu(cuda, kv, act, dt):
     else:
         rel = torch.linalg.norm(got - want) / torch.linalg.norm(want)
         assert rel <= 2e-2, float(rel)
+
+
+def _abs_weight(pw):
+    """|w| + |zp| per weight element, w decoded without its zero-point."""
+    w = decode_codes(unpack_nibbles(pw.packed), pw.fmt, pw.scale, 0.0,
+                     torch.float32)
+    return (w.abs() + pw.zero_point.abs()).reshape(pw.shape)
+
+
+def _assert_order_close(got, want, mag, k):
+    """K2/K3 vs the plain version where K is long (chip_smoke.py:
+    check_close's rule): per element TOL, or where larger the f32 sum-order
+    bound 4 * sqrt(k) * 2^-24 * mag, mag being the same product over |x_q|
+    and |w| + |zp| (the order error of a k-term f32 sum grows like sqrt(k)
+    ulps of the summands' magnitude, far above TOL where they cancel)."""
+    diff = (got.float() - want.float()).abs()
+    allowed = (TOL["atol"] + TOL["rtol"] * want.float().abs()).maximum(
+        4.0 * k ** 0.5 * 2.0 ** -24 * mag)
+    bad = diff > allowed
+    assert not bool(bad.any()), (int(bad.sum()), float(diff.max()))
+
+
+def _dense_mag(x, args, fmt, k, n):
+    """|x_q| @ (|w| + |zp|) for the K2 arguments ``args``."""
+    packed, sc, zp, a = args
+    xq = x if a is None else fp_qdq(x, FPFormat(a[2], a[3], a[4]), a[0], a[1])
+    pw = PackedW4(packed, sc, zp, fmt["exp_bits"], fmt["man_bits"],
+                  fmt["signed"], (k, n))
+    return xq.abs() @ _abs_weight(pw)
+
+
+def _dense_case(kind, m, k, n, dt, dev, act=True, seed=7, dyadic=False):
+    """x (m, k) in ``dt`` and a packed (k, n) weight with its act tuple.
+    ``dyadic``: weight scale maxval/6 = 2^-3 and act maxval 6 (scale 1),
+    so every W4A4 sum is exact and kernel and plain version agree bit for
+    bit whatever the order."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(k, n, generator=g) * 0.3
+    x = (torch.randn(m, k, generator=g) * 1.5).to(dev, dt)
+    if dyadic:
+        pw = pack_weight(w, QuantizerParams(S, 2, 1, 4, torch.tensor(0.75)))
+        aq = QuantizerParams(S, 2, 1, 4, torch.tensor(6.0))
+        pw, aq = pw.to(dev), aq.to(dev)
+    else:
+        pw, aq = _qps(kind, w, kind == U, dev)
+    a = None if not act else (aq.maxval, aq.zero_point, aq.exp_bits,
+                              aq.man_bits, aq.kind == S)
+    fmt = dict(exp_bits=pw.exp_bits, man_bits=pw.man_bits, signed=pw.signed)
+    return x, (pw.packed, pw.scale, pw.zero_point, a), fmt
+
+
+GEMM_CASES = [  # (kind, m, k, n, act): split-K at M 1 and 8 with K >= 1536,
+    # ragged M, N and K (no tile multiple, K rows not 16-byte aligned), the
+    # act-off (three-term split) and unsigned-act operand routes, each tile
+    (S, 1, 1536, 576, True), (S, 8, 1536, 576, True), (U, 8, 2304, 192, True),
+    (S, 131, 100, 66, True), (U, 9, 37, 34, True), (S, 200, 1536, 130, False),
+    (U, 5, 576, 1536, False), (U, 300, 300, 256, True),
+    (S, 4100, 1030, 260, True), (U, 4096, 1152, 256, False)]  # Large tile
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,m,k,n,act", GEMM_CASES)
+def test_k2_tensor_core_routes_match_plain(cuda, kind, m, k, n, act):
+    x, args, fmt = _dense_case(kind, m, k, n, torch.float32, cuda, act)
+    before = k2.w4_matmul_2d_cuda.launches
+    got = k2.w4_matmul_2d(x, *args, **fmt)
+    assert k2.w4_matmul_2d_cuda.launches == before + 1  # split-K included
+    _assert_order_close(got, k2.w4_matmul_2d_plain(x, *args, **fmt),
+                        _dense_mag(x, args, fmt, k, n), k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("cfg", [0, 1, 2])
+@pytest.mark.parametrize("kind,act", [(S, True), (U, True), (S, False)])
+def test_k2_every_tile_and_split_matches_plain(cuda, cfg, splits, kind,
+                                              act):
+    """Each tile shape (Large, Small, Medium) and split count forced on
+    one ragged product (M, N and K no tile multiple, rows not 16-byte
+    aligned), whatever gemm_plan would pick there; held to the sum-order
+    rule (an unsigned weight's zero-point term cancels most of its row)."""
+    m, k, n = 37, 130, 66
+    x, args, fmt = _dense_case(kind, m, k, n, torch.float32, cuda, act)
+    got = k2.w4_matmul_2d_cuda(x, *args, **fmt, plan=(cfg, splits))
+    _assert_order_close(got, k2.w4_matmul_2d_plain(x, *args, **fmt),
+                        _dense_mag(x, args, fmt, k, n), k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(8, 576, 1536), (8, 1536, 576),
+                                   (3, 576, 192), (200, 256, 256)])
+def test_k2_bf16_bit_exact_on_dyadic_scales(cuda, m, k, n):
+    x, args, fmt = _dense_case(S, m, k, n, torch.bfloat16, cuda,
+                               dyadic=True)
+    got = k2.w4_matmul_2d(x, *args, **fmt)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, k2.w4_matmul_2d_plain(x, *args, **fmt))
+
+
+CONV_GPU_CASES = [  # (kind, k, stride, b, hw, cin, cout, dtype): split-K at
+    # 4x4 with cin 512, the chunked gather (cin a multiple of 32), cin not a
+    # multiple of the chunk (40, 6), bf16
+    (S, 3, 1, 8, 4, 512, 256, torch.float32),
+    (U, 3, 2, 2, 16, 128, 128, torch.float32),
+    (S, 3, 1, 2, 9, 40, 24, torch.float32),
+    (U, 1, 1, 3, 7, 6, 10, torch.float32),
+    (S, 3, 1, 8, 8, 384, 256, torch.bfloat16),
+    (S, 3, 2, 2, 9, 40, 16, torch.bfloat16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,k,s,b,hw,cin,cout,dt", CONV_GPU_CASES)
+def test_k3_tensor_core_routes_match_plain(cuda, kind, k, s, b, hw, cin,
+                                          cout, dt):
+    g = torch.Generator().manual_seed(8)
+    w = torch.randn(k, k, cin, cout, generator=g) * (k * k * cin) ** -0.5
+    x = torch.randn(b, hw, hw, cin, generator=g).to(cuda, dt)
+    if dt == torch.bfloat16:   # dyadic scales: exact sums, bit-exact
+        pw = pack_weight(w, QuantizerParams(S, 2, 1, 4, torch.tensor(0.75)))
+        pw, aq = pw.to(cuda), QuantizerParams(S, 2, 1, 4,
+                                              torch.tensor(6.0)).to(cuda)
+    else:
+        pw, aq = _qps(kind, w, kind == U, cuda)
+    kw = dict(stride=(s, s), padding="SAME")
+    for act in (aq, None):
+        got = k3.w4a4_conv2d_implicit(x, pw, act, **kw)
+        want = k3.w4a4_conv2d_implicit_plain(x, pw, act, **kw)
+        if dt == torch.float32:
+            xq = x if act is None else apply_qdq(x, act)
+            mag = k3.conv2d_nhwc(xq.abs(), _abs_weight(pw), **kw)
+            _assert_order_close(got, want, mag, k * k * cin)
+        elif act is not None:
+            assert torch.equal(got, want)
+        else:   # raw bf16 acts: inexact f32 sums, then one bf16 rounding
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2.0**-8, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_split_k_is_deterministic(cuda):
+    """Two launches on the same inputs are bit-identical: the split-K
+    partials are summed in split order, never by float atomics."""
+    x, args, fmt = _dense_case(S, 8, 1536, 576, torch.float32, cuda)
+    assert k2.gemm_plan(8, 576, 1536)[1] > 1
+    runs = [k2.w4_matmul_2d(x, *args, **fmt) for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    g = torch.Generator().manual_seed(9)
+    w = torch.randn(3, 3, 512, 256, generator=g) * 0.02
+    pw, aq = _qps(U, w, True, cuda)
+    xc = torch.randn(8, 4, 4, 512, generator=g).to(cuda)
+    outs = [k3.w4a4_conv2d_implicit(xc, pw, aq, stride=(1, 1),
+                                    padding="SAME") for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])

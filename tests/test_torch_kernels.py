@@ -157,3 +157,122 @@ def test_cuda_wrappers_refuse_cpu_tensors(rng):
     with pytest.raises(ValueError, match="CUDA tensor"):
         tk3.w4a4_conv2d_implicit_cuda(x.reshape(1, 2, 2, 16), pw, None,
                                       stride=(1, 1), padding="SAME")
+
+
+def _bf16_ulps(got, want, mag, k):
+    """|got - want| in units of one bf16 ulp at max(|got|, |want|), less
+    the f32 sum-order bound 4 * sqrt(k) * 2^-24 * mag (``mag``: the same
+    product over |x_q| and |w|), which decides outputs that cancel to near
+    zero (chip_smoke.py:check_close allows the same)."""
+    g = np.asarray(got, np.float64)
+    w = np.asarray(want, np.float64)
+    top = np.maximum(np.abs(g), np.abs(w))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(top, 2.0**-126))) - 7)
+    order = 4.0 * np.sqrt(k) * 2.0**-24 * np.asarray(mag, np.float64)
+    return np.maximum(np.abs(g - w) - order, 0.0) / ulp
+
+
+BF16_RULE_CASES = [  # ("matmul", m, k, n) or ("conv", k, stride, hw, cin, cout)
+    ("matmul", 8, 576, 192), ("matmul", 8, 256, 128),
+    ("conv", 3, 1, 6, 32, 16), ("conv", 1, 1, 6, 64, 32)]
+
+
+@pytest.mark.parametrize("case", BF16_RULE_CASES, ids=str)
+def test_bf16_k2_k3_decode_in_f32_like_the_oracle(case, rng):
+    """The port's bf16 K2/K3 decode the weight in f32, as the oracles
+    ``ref_w4a4_matmul`` / ``ref_w4a4_conv2d`` do: they agree up to bf16
+    output-rounding ties (at most one bf16 ulp, on under 1% of outputs).
+    The Pallas kernels round the decoded weight to x.dtype before the dot
+    (src/repro/kernels/w4_matmul.py:124, conv.py:207), so in bf16 they
+    differ from both, on over 1% of the outputs and over four times as
+    many as the oracle's ties; the port does not follow them. The acts take the
+    main path's E2M1 snap at maxval 6, whose scale is exactly 1, so both
+    packages snap bf16 acts alike (at other maxvals XLA's excess precision
+    can flip act ties, ROADMAP Queue C, which is not this test's subject)."""
+    from repro.kernels import ref as jref
+    aq = jfq.QuantizerParams(S, 2, 1, 4, jnp.float32(6.0))
+    if case[0] == "matmul":
+        _, m, k, n = case
+        w = rng.normal(size=(k, n)).astype(np.float32)
+        x = rng.normal(size=(m, k)).astype(np.float32) * 1.5
+    else:
+        _, kk, s, hw, cin, n = case
+        w = (rng.normal(size=(kk, kk, cin, n)) * 0.3).astype(np.float32)
+        x = rng.normal(size=(2, hw, hw, cin)).astype(np.float32)
+    jpw = jq.pack_weight(jx(w), _weight_qp(S, w, False))
+    tpw = t_packed(jpw)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    fmt = dict(exp_bits=jpw.exp_bits, man_bits=jpw.man_bits, signed=True)
+    xq_abs = tfq.apply_qdq(tx, t_qp(aq)).float().abs()
+    w_abs = tq.dequant_weight(tpw, torch.float32).reshape(-1, n).abs()
+    if case[0] == "matmul":
+        oracle = jax.jit(lambda v: jref.ref_w4a4_matmul(
+            v, jpw, aq, jnp.bfloat16))(xb)
+        pallas = jk2.w4a4_matmul_2d(
+            xb, jpw.packed, jpw.scale, jpw.zero_point, aq.maxval,
+            aq.zero_point, act_exp_bits=aq.exp_bits,
+            act_man_bits=aq.man_bits, act_signed=True, interpret=True, **fmt)
+        ta = t_qp(aq)
+        got = tk2.w4a4_matmul_2d(
+            tx, tpw.packed, tpw.scale, tpw.zero_point, ta.maxval,
+            ta.zero_point, act_exp_bits=aq.exp_bits,
+            act_man_bits=aq.man_bits, act_signed=True, **fmt)
+        mag = xq_abs @ w_abs
+    else:
+        kw = dict(stride=(s, s), padding="SAME")
+        oracle = jax.jit(lambda v: jref.ref_w4a4_conv2d(
+            v, jpw, aq, dtype=jnp.bfloat16, **kw))(xb)
+        pallas = jk3.w4a4_conv2d_implicit(xb, jpw, aq, interpret=True, **kw)
+        got = tk3.w4a4_conv2d_implicit(tx, tpw, t_qp(aq), **kw)
+        mag = tk3.conv2d_nhwc(xq_abs, w_abs.reshape(tpw.shape), **kw)
+        k = kk * kk * cin
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    to_f32 = lambda a: np.asarray(jnp.asarray(a, jnp.float32))  # noqa: E731
+    mag = mag.numpy()
+    ulps = _bf16_ulps(got, to_f32(oracle), mag, k)
+    assert ulps.max() <= 1.0, float(ulps.max())
+    assert np.mean(ulps > 0) < 0.01, float(np.mean(ulps > 0))
+    oracle_ties = np.mean(got != to_f32(oracle))
+    assert np.mean(got != to_f32(pallas)) > max(0.01, 4 * oracle_ties)
+
+
+MAIN_PATH_GEMMS = [  # (m, k, n): smollm-135m decode at batch 8, the
+    # ddim-cifar10 temb and attention products and its convs' (pixels,
+    # kh*kw*cin, cout)
+    (8, 576, 576), (8, 576, 192), (8, 576, 1536), (8, 1536, 576),
+    (8, 128, 512), (8, 512, 512), (8, 512, 128), (8, 512, 256),
+    (2048, 256, 256), (128, 256, 256), (8192, 1152, 128), (2048, 2304, 256),
+    (512, 4608, 256), (512, 512, 256), (128, 4608, 256), (1, 1536, 576)]
+
+
+@pytest.mark.parametrize("m,k,n", MAIN_PATH_GEMMS)
+def test_gemm_plan_fills_one_wave_with_non_empty_splits(m, k, n):
+    """The split is the smallest k range (at least MIN_STEPS steps) whose
+    launch fits one wave of 2 x 132 blocks, and no split is empty."""
+    cfg, splits = tk2.gemm_plan(m, n, k)
+    assert (cfg, splits) in tk2.gemm_candidates(m, n, k)
+    rows, bj, bk, _ = tk2.TILES[cfg]
+    assert (cfg == 1) == (m <= 8)
+    steps = -(-k // bk)
+    per = -(-steps // splits)
+    assert (splits - 1) * per < steps <= splits * per   # none empty
+    blocks = -(-m // rows) * -(-(n // 2) // bj)
+    wave = 2 * tk2.SMS
+    assert splits == 1 or blocks * splits <= wave
+    if per > tk2.MIN_STEPS[cfg]:   # one step less a split overflows it
+        assert blocks * -(-steps // (per - 1)) > max(wave, blocks)
+
+
+@pytest.mark.parametrize("m,k,n", MAIN_PATH_GEMMS + [(9, 0, 64), (8, 31, 2)])
+def test_gemm_candidates_are_the_plans_the_kernel_accepts(m, k, n):
+    """Every candidate is a tile m admits and a split count csrc/w4_gemm.cuh
+    launches (each split non-empty); no accepted split count is missing."""
+    cands = tk2.gemm_candidates(m, n, k)
+    assert {c for c, _ in cands} == set(tk2.tiles_for(m))
+    for cfg in tk2.tiles_for(m):
+        steps = -(-k // tk2.TILES[cfg][2])
+        accepted = {s for s in range(1, max(steps, 1) + 1)
+                    if steps == 0 or (s - 1) * -(-steps // s) < steps}
+        assert {s for c, s in cands if c == cfg} == accepted
