@@ -8,10 +8,11 @@ Phases, each fatal on failure (exit code 1, no result line):
   2. build the four CUDA sources from ``src/repro_torch/kernels/csrc`` (one
      nvcc each, all at once);
   3. hold each kernel against its plain PyTorch version on the card at the
-     main paths' shapes: ddim-cifar10's and smollm-135m's decode (K1, K4
-     and K5 bit-exact; K2/K3 within rtol = atol = 1e-5 or the f32
-     sum-order bound, plus one bf16 rounding step for bf16 outputs, see
-     check_close);
+     main paths' shapes: ddim-cifar10's and smollm-135m's decode (K1, K4,
+     K5 and kv4_store bit-exact; K2/K3 within rtol = atol = 1e-5 or the
+     f32 sum-order bound, plus one bf16 rounding step for bf16 outputs, see
+     check_close; kv4_attend within kernels/kv4.py:kv4_attend_allowed,
+     that bound carried through the softmax plus one ulp of the load dtype);
   4. time kernel, plain version and library yardstick as device time
      (CUDA-graph replays timed with CUDA events; TF32 off for the
      yardsticks and plain versions) beside the bound;
@@ -28,12 +29,16 @@ Phases, each fatal on failure (exit code 1, no result line):
      it (see forward_checks); then one profiled forward (device busy time,
      idle share, top kernels);
   7. serve smollm-135m at full width (W4A4, FP4 KV cache, batch 8, 32
-     prompt + 32 generated tokens) through its launcher: K2, K4 and K5
-     must launch, no off-kernel route may run apart from the tied LM
-     head's product, and the K2 launches by shape add up to their count;
+     prompt + 32 generated tokens) through its launcher: K2, kv4_store and
+     kv4_attend must launch (one kv4_store and one kv4_attend a layer and
+     step; the standalone K4/K5 never), no off-kernel route may run apart
+     from the tied LM head's product, and the K2 launches by shape add up
+     to their count;
   8. a few teacher-forced decode steps of smollm-135m at full width, in
      f32 and in bf16, on the card vs the plain CPU path, each held to its
-     limit (see lm_checks), then one bf16 decode step timed and profiled;
+     limit (see lm_checks), then one bf16 decode step timed and profiled
+     (device busy, idle share, kernel launches, K2/kv4_store/kv4_attend
+     device ms);
   9. every distinct K2/K3 shape launched by the 8 x 10 run of phase 5 and
      the serve run of phase 7, checked signed and unsigned by check_close
      and timed as in phases 3-4, with its launches per forward / per
@@ -91,14 +96,17 @@ def cuda_ms(fn) -> float:
         fail(f"CUDA graph capture refused, no device time to report: {e}")
 
 
-def bound(ops: float, nbytes: float, peak: float = PEAK_OPS_PER_S
-          ) -> tuple[float, str]:
+def bound(ops: float, nbytes: float, peak: float = PEAK_OPS_PER_S,
+          f32_ops: float = 0.0) -> tuple[float, str]:
     """The least time the card could take: the larger of the operations
     over the peak rate of their type and the bytes (each input read once,
     each output written once) over the memory rate. The products' operands
     are FP4 grid points times per-tensor scales, so the bf16 tensor-core
-    rate is their peak; the elementwise snap runs on the f32 units."""
-    t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
+    rate is their peak; the elementwise snap runs on the f32 units.
+    ``f32_ops`` are elementwise operations beside ``ops``' products, priced
+    at the f32 rate (the two kinds of unit run side by side)."""
+    t_ops = max(ops / peak, f32_ops / PEAK_F32_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -330,7 +338,9 @@ def kernel_fns() -> dict:
             "w4a4_matmul": k2.w4_matmul_2d_cuda,
             "w4a4_conv2d": k3.w4a4_conv2d_implicit_cuda,
             "kv4_encode": k45.kv4_encode_2d_cuda,
-            "kv4_decode": k45.kv4_decode_2d_cuda}
+            "kv4_decode": k45.kv4_decode_2d_cuda,
+            "kv4_store": k45.kv4_store_cuda,
+            "kv4_attend": k45.kv4_attend_cuda}
 
 
 def launch_counts() -> dict:
@@ -358,7 +368,7 @@ def check_path(name: str, counts: dict, needed, allowed_off) -> None:
 
 
 DIFFUSION_KERNELS = ("msfp_qdq", "w4a4_matmul", "w4a4_conv2d")
-LM_KERNELS = ("w4a4_matmul", "kv4_encode", "kv4_decode")
+LM_KERNELS = ("w4a4_matmul", "kv4_store", "kv4_attend")
 
 
 def serve(name: str, argv: list[str]) -> dict:
@@ -730,6 +740,110 @@ def kv4_checks(dev) -> dict:
     return rows
 
 
+def kv4_pair_checks(dev) -> dict:
+    """Phases 3 and 4 for the decode path's pair, on a cache of finite
+    garbage (random codes, f16 scales in [0, 4)), 3 kv-heads x 3 query
+    heads, hd 64. kv4_store at the serve shape (B 8, 64 slots), f32 and
+    bf16: codes and f16 scale bits equal the plain version's after a store
+    at slot 32, every other slot untouched; timed in bf16. kv4_attend held
+    to kv4_attend_allowed at the serve shape (64 slots, 32 valid) in bf16
+    and f32 with and without a softcap, and over 2048 slots, all valid, in
+    bf16; timed in bf16 at both. Bounds: bytes (each input read once, only
+    the valid slots of the cache, each output written once) or operations
+    (the encode's 20 f32 an element as K4; attend's two products, 4 G x
+    valid x hd a (batch, kv-head), at the bf16 tensor-core rate as
+    ``bound`` prices products, beside 2 f32 a decoded K/V value, each
+    counted once: a multiply and a rounding); the yardstick is
+    F.scaled_dot_product_attention (enable_gqa) over the valid slots of a
+    bf16 cache decoded beforehand, untimed: attention only."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import kv4 as k45
+    gen = torch.Generator().manual_seed(5)
+    n_kv, g, hd = 3, 3, 64
+    rows = {"kv4_store": [], "kv4_attend": []}
+
+    def cache(slots):
+        codes = (B, slots, n_kv, hd // 2)
+        c = [torch.randint(0, 256, codes, generator=gen, dtype=torch.uint8),
+             torch.randint(0, 256, codes, generator=gen, dtype=torch.uint8),
+             (torch.rand(B, slots, n_kv, generator=gen) * 4).half(),
+             (torch.rand(B, slots, n_kv, generator=gen) * 4).half()]
+        return [x.to(dev) for x in c]
+
+    def draw(*shape, dt):
+        return (torch.randn(*shape, generator=gen) * torch.rand(
+            *shape[:-1], 1, generator=gen) * 8).to(dev, dt)
+
+    fp4 = cache(64)
+    for dt in (torch.bfloat16, torch.float32):
+        k_new, v_new = draw(B, n_kv, hd, dt=dt), draw(B, n_kv, hd, dt=dt)
+        got, want = [x.clone() for x in fp4], [x.clone() for x in fp4]
+        k45.kv4_store_cuda(k_new, v_new, *got, 32)
+        k45.kv4_store_plain(k_new, v_new, *want, 32)
+        diff = sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+                   for a, b in zip(got, want))
+        if diff:
+            fail(f"kv4_store B{B} S64 {dt}: not bit-exact ({diff} bytes "
+                 "differ)")
+        if dt != torch.bfloat16:
+            continue
+        ms = cuda_ms(lambda: k45.kv4_store_cuda(k_new, v_new, *got, 32))
+        plain_ms = cuda_ms(
+            lambda: k45.kv4_store_plain(k_new, v_new, *want, 32))
+        n = 2 * B * n_kv
+        b_ms, b_by = bound(20.0 * n * hd, 2 * n * hd + n * (hd // 2 + 2),
+                           PEAK_F32_PER_S)
+        rows["kv4_store"].append(dict(
+            shape=f"B{B} S64 K{n_kv} hd{hd} bf16", max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    checks = {}
+    cases = [(64, 32, torch.bfloat16, None), (64, 32, torch.bfloat16, 30.0),
+             (64, 32, torch.float32, None), (64, 32, torch.float32, 30.0),
+             (2048, 2048, torch.bfloat16, None)]
+    for slots, valid, dt, softcap in cases:
+        fp4 = cache(slots) if slots != 64 else fp4
+        q = draw(B, n_kv, g, hd, dt=dt)
+        args = (valid, hd ** -0.5, softcap)
+        got = k45.kv4_attend_cuda(q, *fp4, *args)
+        want = k45.kv4_attend_plain(q, *fp4, *args)
+        allowed = k45.kv4_attend_allowed(q, *fp4, *args, want)
+        diff = (got.double() - want.double()).abs()
+        label = (f"B{B} S{slots} valid {valid} K{n_kv} G{g} hd{hd} "
+                 f"{str(dt)[6:]}" + (f" softcap {softcap:g}" if softcap
+                                     else ""))
+        if bool((diff > allowed).any()):
+            fail(f"kv4_attend {label}: {int((diff > allowed).sum())} "
+                 f"elements outside kv4_attend_allowed (max abs err "
+                 f"{float(diff.max()):.3g})")
+        err = checks[label] = float(diff.max())
+        print(f"kv4_attend {label}: max abs err {err:.3g}, largest share of "
+              f"the allowance {float((diff / allowed).max()):.3g}",
+              flush=True)
+        if dt != torch.bfloat16 or softcap:
+            continue
+        ms = cuda_ms(lambda: k45.kv4_attend_cuda(q, *fp4, *args))
+        plain_ms = cuda_ms(lambda: k45.kv4_attend_plain(q, *fp4, *args))
+        keys, vals = (k45._decode_cache(c, sc, dt)[:, :valid].transpose(1, 2)
+                      .contiguous() for c, sc in ((fp4[0], fp4[2]),
+                                                  (fp4[1], fp4[3])))
+        qs = q.reshape(B, n_kv * g, 1, hd)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, keys, vals, enable_gqa=True))
+        b_ms, b_by = bound(
+            4.0 * B * n_kv * g * valid * hd,
+            2 * 2 * B * n_kv * g * hd + 2 * B * valid * n_kv * (hd // 2 + 2),
+            f32_ops=2.0 * 2 * B * n_kv * valid * hd)
+        rows["kv4_attend"].append(dict(
+            shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library="F.scaled_dot_product_attention(enable_gqa=True), "
+                    "attention only, cache pre-decoded"))
+    rows["kv4_attend"][0]["checks"] = checks
+    return rows
+
+
 LM_ARGV = ["--arch", "smollm-135m", "--quant", "w4", "--act-quant", "fp4",
            "--kv", "fp4", "--batch", str(B), "--prompt-len", "32",
            "--gen-len", "32", "--device", "cuda"]
@@ -742,6 +856,7 @@ def serve_lm() -> dict:
     Only kernel routes may run, apart from the tied LM head's product;
     each K2 launch is tallied by shape as in ``serve``."""
     import torch
+    from repro_torch.configs.smollm_135m import full
     from repro_torch.launch import serve
     print("--- serve: smollm-135m W4A4 FP4-KV", flush=True)
     torch.cuda.reset_peak_memory_stats()
@@ -752,6 +867,12 @@ def serve_lm() -> dict:
     check_path("smollm-135m serve", counts, LM_KERNELS,
                {("tied_logits", "torch")})
     check_shapes("smollm-135m serve", shapes, counts)
+    n_layers, per_step = full().n_layers, out["launches_per_step"]
+    want = {"kv4_store": n_layers, "kv4_attend": n_layers, "kv4_encode": 0,
+            "kv4_decode": 0}
+    if any(per_step[k] != v for k, v in want.items()):
+        fail(f"smollm-135m serve: launches per decode step {per_step}, "
+             f"expected {want}")
     peak = torch.cuda.max_memory_allocated() / 2**20
     print(f"serve smollm-135m: {out['tok_s']:.2f} tok/s decode at batch "
           f"{B}, prefill {out['prefill_s']:.3f}s, decode "
@@ -777,14 +898,15 @@ def lm_checks(dev, steps: int = 4) -> dict:
     and the kernels' arithmetic alone is compared; the same steps on the
     random weights are reported too (there the order of the sums decides
     FP4 and act-grid ties). Then one bf16 decode step of the serve
-    configuration, timed without the profiler and then profiled: the idle
-    share is reported against both wall times."""
+    configuration, timed without the profiler and then profiled
+    (``launch/profile_decode.py``): the idle share is reported against both
+    wall times, with the step's CUDA kernel launches."""
     import dataclasses
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.smollm_135m import full
+    from repro_torch.launch.profile_decode import decode_step_profile
     from repro_torch.launch.steps import (dyadic_weights, make_decode_fn,
                                           quantize_lm_for_serving)
     from repro_torch.models.lm import init_caches, lm_init
@@ -845,45 +967,30 @@ def lm_checks(dev, steps: int = 4) -> dict:
 
     # one decode step of the serve configuration (bf16, B 8, 64-slot cache
     # half full): median of 10 unprofiled steps, then one profiled step
-    cfg = dataclasses.replace(full(), kv_dtype="fp4")
-    p = quantize_lm_for_serving(lm_init(torch.Generator().manual_seed(0),
-                                        cfg, dev))
-    ctx = QuantContext("serve", act_qps={"*": QuantizerParams(
-        0, 2, 1, 4, torch.tensor(6.0, device=dev))})
-    step = make_decode_fn(cfg, ctx=ctx)
-    caches = init_caches(cfg, B, 64, dev)
-    tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
-    with torch.inference_mode():
-        for i in range(32):
-            step(p, caches, tok, i)
-        torch.cuda.synchronize()
-        plain_walls = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            step(p, caches, tok, 32)
-            torch.cuda.synchronize()
-            plain_walls.append((time.perf_counter() - t0) * 1e3)
-        step_ms = sorted(plain_walls)[len(plain_walls) // 2]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step(p, caches, tok, 32)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, top = device_time(prof)
-    per_kernel = kernel_device_ms(prof)
+    prof = decode_step_profile(dataclasses.replace(full(), kv_dtype="fp4"), B,
+                               64, 32, dev)
+    _, top = device_time(prof.pop("prof"))
+    per_kernel = kernel_ms(prof["kernels"])
     print(f"profile decode step smollm-135m B={B}: unprofiled wall "
-          f"{step_ms:.3f} ms (median of 10), profiled wall {wall_ms:.3f} ms, "
-          f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / step_ms:.3f}"
-          f" of the unprofiled step ({1 - busy_ms / wall_ms:.3f} of the "
-          f"profiled one), K2 {per_kernel['w4a4_matmul']:.3f} ms", flush=True)
+          f"{prof['step_ms']:.3f} ms (median of 10; host CPU "
+          f"{prof['cpu_ms']:.3f} ms), profiled wall "
+          f"{prof['profile_wall_ms']:.3f} ms, device busy "
+          f"{prof['busy_ms']:.3f} ms, idle share {prof['idle_share']:.3f} of "
+          f"the unprofiled step ({prof['idle_share_profiled']:.3f} of the "
+          f"profiled one), {prof['launches']} CUDA kernel launches; device "
+          + ", ".join(f"{k} {v['ms']:.4f} ms x{v['launches']}"
+                      for k, v in per_kernel.items()), flush=True)
     for line in top:
         print(line, flush=True)
-    res.update(step_ms=step_ms, profile_wall_ms=wall_ms,
-               profile_device_busy_ms=busy_ms,
-               idle_share=1 - busy_ms / step_ms,
-               idle_share_profiled=1 - busy_ms / wall_ms,
-               profile_kernel_ms=per_kernel)
+    res.update(step_ms=prof["step_ms"], step_cpu_ms=prof["cpu_ms"],
+               profile_wall_ms=prof["profile_wall_ms"],
+               profile_device_busy_ms=prof["busy_ms"],
+               idle_share=prof["idle_share"],
+               idle_share_profiled=prof["idle_share_profiled"],
+               kernel_launches=prof["launches"],
+               profile_kernel_ms={k: v["ms"] for k, v in per_kernel.items()},
+               profile_kernel_launches={k: v["launches"]
+                                        for k, v in per_kernel.items()})
     return res
 
 
@@ -1056,38 +1163,41 @@ def path_shapes(dev, rows: dict, runs: dict, profiled: dict) -> dict:
     return sums
 
 
-def kernel_device_ms(prof) -> dict:
-    """K2's and K3's device ms in a profile, split-K reduction included
-    (their instances carry the operand loader's name)."""
-    import torch
-    out = {"w4a4_matmul": 0.0, "w4a4_conv2d": 0.0}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if "DenseA" in e.key:
-            out["w4a4_matmul"] += us / 1e3
-        elif "ConvA" in e.key:
-            out["w4a4_conv2d"] += us / 1e3
+# a kernel's instances in a profile: K2/K3 carry their operand loader's
+# name (split-K reduction included), the kv4 kernels their own
+KERNEL_KEYS = {"w4a4_matmul": "DenseA", "w4a4_conv2d": "ConvA",
+               "kv4_store": "kv4_store_kernel",
+               "kv4_attend": "kv4_attend_kernel"}
+
+
+def kernel_ms(rows: dict) -> dict:
+    """Device ms and launches by kernel of ``rows`` (kernel name ->
+    {"ms", "launches"}, as profile_decode gives them)."""
+    out = {k: {"ms": 0.0, "launches": 0} for k in KERNEL_KEYS}
+    for name, r in rows.items():
+        for k, key in KERNEL_KEYS.items():
+            if key in name:
+                out[k]["ms"] += r["ms"]
+                out[k]["launches"] += r["launches"]
     return out
+
+
+def kernel_device_ms(prof) -> dict:
+    """Device ms by kernel in a profile (``kernel_ms``)."""
+    from repro_torch.launch.profile_decode import device_us, kernel_rows
+    return {k: v["ms"] for k, v in kernel_ms(
+        {e.key: {"ms": device_us(e) / 1e3, "launches": e.count}
+         for e in kernel_rows(prof)}).items()}
 
 
 def device_time(prof, n_top: int = 8):
     """Device busy ms (kernel rows of the profile: an aten op's row repeats
     its kernels' device time) and the top kernels' lines."""
-    import torch
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in evs) / 1e3
-    top = sorted(evs, key=dev_us, reverse=True)[:n_top]
-    return busy_ms, [f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
+    from repro_torch.launch.profile_decode import device_us, kernel_rows
+    evs = kernel_rows(prof)
+    busy_ms = sum(device_us(e) for e in evs) / 1e3
+    top = sorted(evs, key=device_us, reverse=True)[:n_top]
+    return busy_ms, [f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
                      f"{e.key[:90]}" for e in top]
 
 
@@ -1115,6 +1225,7 @@ def main() -> None:
 
     rows = kernel_checks(dev)
     rows.update(kv4_checks(dev))
+    rows.update(kv4_pair_checks(dev))
     for name, rs in rows.items():
         for r in rs:
             print(f"kernel {name} {r['shape']}: {r['ms']:.4f} ms, plain "
@@ -1160,7 +1271,9 @@ def main() -> None:
             "kv4_encode": (source + "kv4.cu",
                            "src/repro/kernels/kv4.py:65"),
             "kv4_decode": (source + "kv4.cu",
-                           "src/repro/kernels/kv4.py:86")}
+                           "src/repro/kernels/kv4.py:86"),
+            "kv4_store": (source + "kv4.cu", "src/repro/kernels/kv4.py:65"),
+            "kv4_attend": (source + "kv4.cu", "src/repro/kernels/kv4.py:86")}
     kernels = []
     for name, rs in rows.items():
         head = rs[0]        # the first main path's shape of this kernel
@@ -1168,7 +1281,9 @@ def main() -> None:
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],
             "launches_by_path": by_path[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "max_abs_err": max(max([r["max_abs_err"],
+                                    *r.get("checks", {}).values()])
+                               for r in rs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],

@@ -27,12 +27,21 @@ SOURCES = ("msfp_quant", "w4_matmul", "conv", "kv4")
 # nvcc splits a -D value at commas); kernels/w4_matmul.py plans launches
 # with the same table.
 GEMM_TILES = {0: (128, 64, 32, 256), 1: (8, 32, 32, 128), 2: (64, 32, 32, 256)}
+# kv4_attend (csrc/kv4.cu): cache slots a cp.async ring stage (one a
+# thread of its 128) and the most query heads a kv-head. nvcc gets them as
+# -DKV4_ATTEND_CHUNK / -DKV4_ATTEND_MAX_G; kernels/kv4.py sizes the
+# kernel's shared memory from the same values.
+ATTEND_CHUNK = 128
+ATTEND_MAX_G = 8
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC",
               *(f"-DW4_TILE{c}_{name}={v}" for c, t in GEMM_TILES.items()
-                for name, v in zip(("ROWS", "BJ", "BK", "NT"), t)))
+                for name, v in zip(("ROWS", "BJ", "BK", "NT"), t)),
+              f"-DKV4_ATTEND_CHUNK={ATTEND_CHUNK}",
+              f"-DKV4_ATTEND_MAX_G={ATTEND_MAX_G}")
 
-P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+P, I, LL, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+              ctypes.c_float)
 # C entry points: name -> (library, argtypes); every one returns the
 # cudaError_t of its launch as an int.
 SIGNATURES = {
@@ -45,6 +54,9 @@ SIGNATURES = {
                           I, I, I, I, P, P, I, I, I, I, I, I, I, P, P, P]),
     "kv4_encode_launch": ("kv4", [P, P, P, I, I, I, P]),
     "kv4_decode_launch": ("kv4", [P, P, P, LL, I, I, P]),
+    "kv4_store_launch": ("kv4", [P, P, P, P, P, P, I, I, LL, I, I, I, P]),
+    "kv4_attend_launch": ("kv4", [P, P, P, P, P, P, I, I, I, I, LL, I, F, F,
+                                  I, I, I, I, P]),
 }
 
 _lock = threading.Lock()

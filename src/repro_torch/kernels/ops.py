@@ -2,7 +2,8 @@
 
 Every op dispatches on its input's device: a CUDA tensor launches the
 hand-written kernel (K1 ``msfp_quant``, K2 ``w4_matmul``, K3 ``conv``,
-K4/K5 ``kv4``) or raises, a CPU tensor takes the kernel's plain PyTorch
+K4/K5 ``kv4`` and the decode path's ``kv4_store``/``kv4_attend``) or
+raises, a CPU tensor takes the kernel's plain PyTorch
 version. There is no fallback from a failed kernel to the plain version.
 
 The branches that no kernel covers keep the reference's rules (INT-affine
@@ -29,6 +30,7 @@ from repro_torch.core.qmodule import PackedW4
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.conv import (conv2d_nhwc, w4a4_conv2d_im2col,
                                       w4a4_conv2d_implicit)
+from repro_torch.kernels import kv4 as _kv4
 from repro_torch.kernels.kv4 import kv4_decode_2d, kv4_encode_2d
 from repro_torch.kernels.msfp_quant import msfp_qdq
 from repro_torch.kernels.w4_matmul import w4_matmul_2d
@@ -189,3 +191,23 @@ def kv4_decode(packed: torch.Tensor, scale: torch.Tensor,
                     lambda: kv4_decode_2d(packed.reshape(-1, hh),
                                           scale.reshape(-1), dtype))
     return out.reshape(*lead, 2 * hh)
+
+
+def kv4_store(k_new: torch.Tensor, v_new: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, k_scale: torch.Tensor, v_scale: torch.Tensor,
+              pos: int) -> None:
+    """The new token's k and v (B, K, hd) encoded into slot ``pos`` of the
+    packed cache (k, v (B, S, K, hd/2) uint8; k_scale, v_scale (B, S, K)
+    f16), in place: one ``kv4_store`` launch."""
+    _dispatch("kv4_store", _kernel_label(k_new), lambda: _kv4.kv4_store(
+        k_new, v_new, k, v, k_scale, v_scale, pos))
+
+
+def kv4_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               k_scale: torch.Tensor, v_scale: torch.Tensor, valid_len: int,
+               scale: float, softcap: float | None = None) -> torch.Tensor:
+    """q (B, K, G, hd) attends over the first ``valid_len`` slots of the
+    packed cache -> o (B, K, G, hd) in q.dtype: one ``kv4_attend``
+    launch, the cache decoded where it is read."""
+    return _dispatch("kv4_attend", _kernel_label(q), lambda: _kv4.kv4_attend(
+        q, k, v, k_scale, v_scale, valid_len, scale, softcap))

@@ -68,7 +68,8 @@ def gemm_plan(m: int, n: int, k: int) -> tuple[int, int]:
     cost and more, smaller blocks win. K is then split into as many splits
     as fit one wave of 2 x 132 blocks, each keeping at least ``MIN_STEPS``
     k steps. The splits' f32 partials are summed in split order. The
-    thresholds come from ``kernels.sweep`` (its table is in PERF.md)."""
+    thresholds come from ``kernels.sweep`` (its table is in
+    PERF_APPENDIX.md)."""
     half = n // 2
     large_tiles = -(-m // TILES[LARGE][0]) * -(-half // TILES[LARGE][1])
     tiles = tiles_for(m)

@@ -29,6 +29,8 @@ from repro_torch.quant.calibrate import QuantContext
 from repro_torch.quant.fakequant import KIND_FP_SIGNED, QuantizerParams
 
 KERNELS = {"w4a4_matmul": w4_matmul.w4_matmul_2d_cuda,
+           "kv4_store": kv4.kv4_store_cuda,
+           "kv4_attend": kv4.kv4_attend_cuda,
            "kv4_encode": kv4.kv4_encode_2d_cuda,
            "kv4_decode": kv4.kv4_decode_2d_cuda}
 

@@ -3,16 +3,19 @@ part of ``repro.nn.attention``.
 
 One new token attends over the cache. The cache dtype is bf16, fp8 (e4m3)
 or packed FP4 (signed E2M1 with an f16 scale per (token, kv-head), the
-MSFP-style cache compression): the FP4 store runs the encode kernel K4 on
-the new token's k and v, the load runs the decode kernel K5 over the whole
-cache (``kernels/kv4.py``). Unlike the reference, which returns a new
-cache, ``attn_decode`` writes the new token into the cache tensors in
-place and returns the same dict.
+MSFP-style cache compression). An FP4 cache takes two kernels a layer
+(``kernels/kv4.py``): ``kv4_store`` encodes the new token's k and v into
+its slot, ``kv4_attend`` attends over the packed cache, decoding it where
+it reads it; their plain versions are the reference's arithmetic (K4's
+encode, K5's decode, then the attention below). Unlike the reference,
+which returns a new cache, ``attn_decode`` writes the new token into the
+cache tensors in place and returns the same dict.
 
-The two attention products stay plain ``einsum`` calls, as the reference
-leaves them to XLA: the logits in f32 over f32-cast operands (the
-reference's ``preferred_element_type=f32`` on exact upcasts), TF32 off;
-the weighted sum of the values in the cache's load dtype.
+For bf16 and fp8 caches the attention stays plain torch
+(``kernels/kv4.py:attend``), as the reference leaves it to XLA: the logits
+in f32 over f32-cast operands (the reference's ``preferred_element_type=
+f32`` on exact upcasts), TF32 off; the weighted sum of the values in the
+cache's load dtype.
 """
 from __future__ import annotations
 
@@ -20,8 +23,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.common.device import no_tf32
-from repro_torch.kernels import ops
+from repro_torch.kernels import kv4, ops
 from repro_torch.nn.embeddings import apply_rope
 from repro_torch.nn.layers import dense_apply, dense_init
 
@@ -106,24 +108,11 @@ def to_fp8_e4m3(x: torch.Tensor) -> torch.Tensor:
 
 
 def _kv_store(cache: dict, k_new, v_new, pos: int, kv_dtype: str) -> None:
-    """Write one position (B, 1, K, hd) into the cache at slot ``pos``."""
-    if kv_dtype == "fp4":
-        for name, t in (("k", k_new), ("v", v_new)):
-            packed, scale = ops.kv4_encode(t)
-            cache[name][:, pos] = packed[:, 0]
-            cache[f"{name}_scale"][:, pos] = scale[:, 0]
-        return
+    """Write one position (B, 1, K, hd) into a bf16/fp8 cache at ``pos``."""
     cast = ((lambda t: t.to(torch.bfloat16)) if kv_dtype == "bf16"
             else to_fp8_e4m3)
     cache["k"][:, pos] = cast(k_new[:, 0])
     cache["v"][:, pos] = cast(v_new[:, 0])
-
-
-def _kv_load(cache: dict, kv_dtype: str, dtype=torch.bfloat16):
-    if kv_dtype in ("bf16", "fp8"):
-        return cache["k"].to(dtype), cache["v"].to(dtype)
-    return (ops.kv4_decode(cache["k"], cache["k_scale"], dtype),
-            ops.kv4_decode(cache["v"], cache["v_scale"], dtype))
 
 
 def attn_decode(p: dict, x: torch.Tensor, cache: dict, store_pos: int,
@@ -140,18 +129,14 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, store_pos: int,
     """
     b = x.shape[0]
     q, k, v = _qkv(p, x, cfg, cos_t, sin_t, ctx=ctx, site=site)
-    _kv_store(cache, k, v, store_pos, kv_dtype)
-    keys, vals = _kv_load(cache, kv_dtype, x.dtype)
-    s_max = keys.shape[1]
-    with no_tf32():
-        logits = torch.einsum("bqkgh,bskh->bkgqs", q.to(torch.float32),
-                              keys.to(torch.float32)) * cfg.head_dim ** -0.5
-    if cfg.softcap:
-        logits = cfg.softcap * torch.tanh(logits / cfg.softcap)
-    valid = torch.arange(s_max, device=x.device) < valid_len
-    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
-    w = torch.softmax(logits, dim=-1).to(vals.dtype)
-    with no_tf32():
-        o = torch.einsum("bkgqs,bskh->bqkgh", w, vals)
+    scale = cfg.head_dim ** -0.5
+    if kv_dtype == "fp4":
+        fp4 = (cache["k"], cache["v"], cache["k_scale"], cache["v_scale"])
+        ops.kv4_store(k[:, 0], v[:, 0], *fp4, store_pos)
+        o = ops.kv4_attend(q[:, 0], *fp4, valid_len, scale, cfg.softcap)
+    else:
+        _kv_store(cache, k, v, store_pos, kv_dtype)
+        keys, vals = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+        o = kv4.attend(q[:, 0], keys, vals, valid_len, scale, cfg.softcap)
     o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
     return dense_apply(p["wo"], o, ctx=ctx, site=f"{site}/wo"), cache

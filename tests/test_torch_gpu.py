@@ -5,7 +5,10 @@ marker and skips, with its reason, where torch.cuda is unavailable; run it
 there with ``python -m pytest -m gpu tests/test_torch_gpu.py``. The
 decision is taken inside a fixture, never at import.
 
-Tolerances: K1, K4 and K5 bit-exact; K2/K3 rtol = atol = 1e-5, the order
+Tolerances: K1, K4, K5 and kv4_store bit-exact; kv4_attend within
+kernels/kv4.py:kv4_attend_allowed (the f32 sum-order bound of
+check_close's rule, carried through the softmax, plus one ulp of the load
+dtype on the weights and on the output); K2/K3 rtol = atol = 1e-5, the order
 of the f32 sums and per-term roundings of the scales being the only
 differences (at long K, or the f32 sum-order bound where larger, as
 chip_smoke.py:check_close; bit-exact on power-of-two scales); an LM decode on the card vs the
@@ -141,6 +144,84 @@ def test_k4_k5_bit_exact(cuda, dt, rows):
                                                  before[1] + 2)
 
 
+def _kv4_cache(b, slots, n_kv, hd, dev, seed):
+    """An FP4 cache of finite garbage (random codes, f16 scales in [0, 4))
+    and q (b, n_kv, 3, hd) drawers, from a seed."""
+    g = torch.Generator().manual_seed(seed)
+    codes = (b, slots, n_kv, hd // 2)
+    cache = [torch.randint(0, 256, codes, generator=g, dtype=torch.uint8),
+             torch.randint(0, 256, codes, generator=g, dtype=torch.uint8),
+             torch.rand(b, slots, n_kv, generator=g) * 4,
+             torch.rand(b, slots, n_kv, generator=g) * 4]
+    cache[2:] = [x.half() for x in cache[2:]]
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=g) * torch.rand(
+            *shape[:-1], 1, generator=g) * 8
+    return [x.to(dev) for x in cache], draw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 16])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_kv4_store_bit_exact_in_place(cuda, dt, hd):
+    """k and v of one token encoded into a middle slot of a garbage cache:
+    codes and f16 scale bits equal the plain version's, every other slot
+    untouched, one launch."""
+    cache, draw = _kv4_cache(8, 64, 3, hd, cuda, 12)
+    k_new, v_new = draw(8, 3, hd).to(cuda, dt), draw(8, 3, hd).to(cuda, dt)
+    k_new[0, 0] = 0.0
+    k_new[1, 0, :3] = -0.0
+    want = [x.clone() for x in cache]
+    k45.kv4_store_plain(k_new, v_new, *want, 31)
+    before = k45.kv4_store_cuda.launches
+    ops.kv4_store(k_new, v_new, *cache, 31)
+    assert k45.kv4_store_cuda.launches == before + 1
+    for got, ref in zip(cache, want):
+        assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+
+
+# (B, slots, valid): the serve shape's cache early, mid-way and full; a
+# long cache; one whose logits take the shared memory past 48 KB
+ATTEND_CASES = [(8, 64, 1), (8, 64, 33), (8, 64, 64), (2, 2048, 2048),
+                (1, 4096, 4000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,slots,valid", ATTEND_CASES)
+@pytest.mark.parametrize("softcap", [None, 5.0])
+@pytest.mark.parametrize("hd", [64, 16])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_kv4_attend_matches_plain(cuda, dt, hd, softcap, b, slots, valid):
+    """3 kv-heads x 3 query heads over a garbage cache (the slots from
+    ``valid`` on must not count): within kv4_attend_allowed of the plain
+    version on the card, one launch a call."""
+    cache, draw = _kv4_cache(b, slots, 3, hd, cuda, slots + valid + hd)
+    q = draw(b, 3, 3, hd).to(cuda, dt)
+    args = (valid, hd ** -0.5, softcap)
+    want = k45.kv4_attend_plain(q, *cache, *args)
+    before = k45.kv4_attend_cuda.launches
+    got = ops.kv4_attend(q, *cache, *args)
+    assert k45.kv4_attend_cuda.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    allowed = k45.kv4_attend_allowed(q, *cache, *args, want)
+    diff = (got.double() - want.double()).abs()
+    assert not bool((diff > allowed).any()), (int((diff > allowed).sum()),
+                                              float(diff.max()))
+
+
+@pytest.mark.gpu
+def test_kv4_attend_over_limit_raises(cuda):
+    """A cache whose G x S logits do not fit one block's shared memory is
+    refused before any launch."""
+    cache, draw = _kv4_cache(1, 20_000, 3, 64, cuda, 13)
+    q = draw(1, 3, 3, 64).to(cuda)
+    before = k45.kv4_attend_cuda.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.kv4_attend(q, *cache, 20_000, 0.125)
+    assert k45.kv4_attend_cuda.launches == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv,act,dt", [("fp4", True, torch.float32),
                                        ("bf16", True, torch.float32),
@@ -150,7 +231,8 @@ def test_lm_decode_on_card_matches_cpu(cuda, kv, act, dt):
     """smollm-135m-smoke over packed ``dyadic_weights`` (exact W4A4 sums
     in any order; E2M1 acts fused into K2 where ``act``; an FP8 cache runs
     acts off, as in tests/test_torch_lm.py): 6 teacher-forced steps on the
-    card (K2, K4, K5) vs the CPU (their plain versions), both in torch.
+    card (K2, kv4_store, kv4_attend) vs the CPU (their plain versions),
+    both in torch.
     Tolerance: f32, max abs error <= 1e-4 * max |logit| per step and the
     same argmax; bf16, relative Frobenius error <= 2e-2."""
     cfg = dataclasses.replace(smollm_smoke(), kv_dtype=kv, dtype=dt)

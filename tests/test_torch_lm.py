@@ -441,8 +441,8 @@ def test_launcher_cpu_smoke_takes_plain_routes_only():
     steps = 3 + 3
     assert dict(tops.ROUTES) == {
         ("w4a4_matmul", "plain"): 7 * n_layers * steps,
-        ("kv4_encode", "plain"): 2 * n_layers * steps,
-        ("kv4_decode", "plain"): 2 * n_layers * steps,
+        ("kv4_store", "plain"): n_layers * steps,
+        ("kv4_attend", "plain"): n_layers * steps,
         ("tied_logits", "torch"): steps}
     assert set(out["launches_per_step"].values()) == {0}
 
