@@ -9,25 +9,32 @@ Phases, each fatal on failure (exit code 1, no result line):
      nvcc each, all at once);
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes: ddim-cifar10's and smollm-135m's decode (K1, K4,
-     K5 and kv4_store bit-exact; K2/K3 within rtol = atol = 1e-5 or the
-     f32 sum-order bound, plus one bf16 rounding step for bf16 outputs, see
-     check_close; kv4_attend within kernels/kv4.py:kv4_attend_allowed,
-     that bound carried through the softmax plus one ulp of the load dtype);
+     K5 and kv4_store bit-exact; K2/K3 and the io sites' qdq_conv2d (at
+     conv_in and conv_out, acts signed, unsigned with zp != 0, and off)
+     within rtol = atol = 1e-5 or the f32 sum-order bound, plus one bf16
+     rounding step for bf16 outputs, see check_close; kv4_attend within
+     kernels/kv4.py:kv4_attend_allowed, that bound carried through the
+     softmax plus one ulp of the load dtype);
   4. time kernel, plain version and library yardstick as device time
      (CUDA-graph replays timed with CUDA events; TF32 off for the
-     yardsticks and plain versions) beside the bound;
+     yardsticks and plain versions) beside the bound; qdq_conv2d also
+     beside the composition it replaces (K1, the torch f32 conv, the bias
+     add);
   5. serve ddim-cifar10 at full width through the launcher: the golden
      trace under the virtual clock, then 8 requests x 10 ddim steps at
-     max-batch 8 on the wall clock; every kernel of the path must launch,
-     no off-kernel route may run apart from the io sites' f32 conv, and
-     the K2/K3 launches, tallied by shape, must add up to their counts;
+     max-batch 8 on the wall clock; every kernel of the path must launch
+     (qdq_conv2d twice a forward, the standalone K1 never), no off-kernel
+     route may run, and the K2/K3 launches, tallied by shape, must add up
+     to their counts;
   6. full-width forwards at batch 8 against the CPU plain versions: on
-     power-of-two weight scales every K2/K3 call bit-exact, the forward
-     held card vs CPU and kernels vs plain versions on the card, and two
-     control faults that must break the card-vs-CPU limit; on the random
-     weights every call held by check_close and a control that must break
-     it (see forward_checks); then one profiled forward (device busy time,
-     idle share, top kernels);
+     power-of-two weight scales every K2/K3 call bit-exact and each io
+     call within check_close, the forward held card vs CPU and kernels vs
+     plain versions on the card, and two control faults that must break
+     the card-vs-CPU limit; on the random weights every call held by
+     check_close and a control that must break it (see forward_checks);
+     the card's forward with the io sites' old composition reported
+     against the CPU beside it; then one profiled forward (device busy
+     time, idle share, kernel launches, top kernels);
   7. serve smollm-135m at full width (W4A4, FP4 KV cache, batch 8, 32
      prompt + 32 generated tokens) through its launcher: K2, kv4_store and
      kv4_attend must launch (one kv4_store and one kv4_attend a layer and
@@ -275,6 +282,70 @@ def k3_row(dev, b: int, hw: int, cin: int, cout: int, kk: int, s: int
     return row
 
 
+def io_conv_row(dev, site: str, cin: int, cout: int) -> dict:
+    """qdq_conv2d at an io site of ddim-cifar10 (B 8, 32x32, 3x3 SAME, a
+    bf16 weight and a bias, as the bank keeps them): checked with acts
+    signed (E2M1 at maxval 6, the main path), unsigned (uE2M2, zp -0.28:
+    its snap of 0 is not 0, so the pads must stay 0) and off, each by
+    check_close against the plain version with K = 9 * cin and the
+    magnitude the same conv over |snap(x)| and |W|; then the signed case
+    timed beside the plain version, the bound, the library yardstick
+    (F.conv2d in f32, TF32 off, on the snapped input padded to NCHW
+    beforehand: the conv alone, which the port never calls) and the
+    composition the kernel replaces (K1, dense_conv2d's torch f32 conv,
+    the bias add). The bound counts each input read once and the output
+    written once, 2 f32 operations a multiply-add and 20 a snapped act."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.common.device import no_tf32
+    from repro_torch.kernels import conv as k3
+    from repro_torch.kernels import msfp_quant as k1
+    from repro_torch.quant.fakequant import apply_qdq
+    randn = _gen_randn(dev, cin * 31 + cout)
+    x = randn(B, 32, 32, cin, scale=2.0)
+    w = randn(3, 3, cin, cout, scale=(9 * cin) ** -0.5).to(torch.bfloat16)
+    bias = randn(cout, scale=0.1)
+    acts = {"signed": _qp(dev, True, 6.0),
+            "unsigned": _qp(dev, False, 3.0, -0.28), "off": None}
+    label = f"{site} 3x3 32x32 {cin}->{cout} B{B}, bf16 weight, bias"
+    checks = {}
+    for kind, aq in acts.items():
+        got = k1.qdq_conv2d_cuda(x, w, aq, bias)
+        want = k1.qdq_conv2d_plain(x, w, aq, bias)
+        xq = x if aq is None else apply_qdq(x, aq)
+        mag = k3.conv2d_nhwc(xq.abs(), w.float().abs(), stride=(1, 1),
+                             padding="SAME")
+        checks[kind] = check_close(f"qdq_conv2d {label}, acts {kind}", got,
+                                   want, mag, 9 * cin)
+    aq = acts["signed"]
+    snap = dict(exp_bits=aq.exp_bits, man_bits=aq.man_bits, signed=True)
+
+    def composition():
+        xq = k1.msfp_qdq_2d_cuda(x, aq.maxval, aq.zero_point, **snap)
+        return k3.conv2d_nhwc(xq, w.to(torch.float32), stride=(1, 1),
+                              padding="SAME") + bias
+
+    ms = cuda_ms(lambda: k1.qdq_conv2d_cuda(x, w, aq, bias))
+    plain_ms = cuda_ms(lambda: k1.qdq_conv2d_plain(x, w, aq, bias))
+    comp_ms = cuda_ms(composition)
+    xn = F.pad(apply_qdq(x, aq).permute(0, 3, 1, 2),
+               (1, 1, 1, 1)).contiguous()
+    wn = w.float().permute(3, 2, 0, 1).contiguous()
+    with no_tf32():
+        lib_ms = cuda_ms(lambda: F.conv2d(xn, wn))
+    m = B * 32 * 32
+    b_ms, b_by = bound(0.0, 4 * x.numel() + 2 * w.numel() + 4 * cout
+                       + 4 * m * cout,
+                       f32_ops=2.0 * m * 9 * cin * cout + 20.0 * x.numel())
+    return dict(shape=label, max_abs_err=max(checks.values()),
+                checks=checks, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                library="F.conv2d f32 (TF32 off) on the snapped input padded "
+                        "to NCHW beforehand: the conv alone",
+                composition_ms=comp_ms,
+                composition="K1 + dense_conv2d's torch f32 conv + bias add")
+
+
 def kernel_checks(dev):
     """Phases 3 and 4: per kernel, per main-path shape, check and time
     (K2/K3 at their first main-path shapes; every other shape the paths
@@ -286,7 +357,8 @@ def kernel_checks(dev):
     def qp(signed, maxval, zp=0.0):
         return _qp(dev, signed, maxval, zp)
 
-    rows = {"msfp_qdq": [], "w4a4_matmul": [], "w4a4_conv2d": []}
+    rows = {"msfp_qdq": [], "qdq_conv2d": [], "w4a4_matmul": [],
+            "w4a4_conv2d": []}
 
     # K1: the io-site act snaps, (B*1024, 3) at conv_in, (B*1024, 128) at
     # conv_out; signed E2M1 at maxval 6 (main path) and unsigned E2M2.
@@ -310,6 +382,11 @@ def kernel_checks(dev):
                 shape=f"({m},{n})", max_abs_err=0.0, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None))
+
+    # the io sites, each one qdq_conv2d launch: conv_in 3 -> 128 and
+    # conv_out 128 -> 3 at 32x32
+    rows["qdq_conv2d"] = [io_conv_row(dev, "conv_in", 3, 128),
+                          io_conv_row(dev, "conv_out", 128, 3)]
 
     # K2: attention q/k/v/proj at 16x16 x 256 ch, and temb1 (B, 512)x512
     # (ddim-cifar10, f32); smollm-135m's decode at batch B in bf16: the
@@ -335,6 +412,7 @@ def kernel_fns() -> dict:
     from repro_torch.kernels import msfp_quant as k1
     from repro_torch.kernels import w4_matmul as k2
     return {"msfp_qdq": k1.msfp_qdq_2d_cuda,
+            "qdq_conv2d": k1.qdq_conv2d_cuda,
             "w4a4_matmul": k2.w4_matmul_2d_cuda,
             "w4a4_conv2d": k3.w4a4_conv2d_implicit_cuda,
             "kv4_encode": k45.kv4_encode_2d_cuda,
@@ -367,7 +445,7 @@ def check_path(name: str, counts: dict, needed, allowed_off) -> None:
         fail(f"{name}: off-kernel routes ran on the card: {off}")
 
 
-DIFFUSION_KERNELS = ("msfp_qdq", "w4a4_matmul", "w4a4_conv2d")
+DIFFUSION_KERNELS = ("qdq_conv2d", "w4a4_matmul", "w4a4_conv2d")
 LM_KERNELS = ("w4a4_matmul", "kv4_store", "kv4_attend")
 
 
@@ -383,9 +461,14 @@ def serve(name: str, argv: list[str]) -> dict:
     with recording_launches() as shapes:
         out = serve_diffusion.main(argv)
     counts = launch_counts()
-    check_path(name, counts, DIFFUSION_KERNELS, {("conv2d", "torch_f32")})
+    check_path(name, counts, DIFFUSION_KERNELS, set())
     check_shapes(name, shapes, counts)
     s = out["engine"]
+    # the io sites: one qdq_conv2d each a forward, the standalone K1 never
+    if counts["msfp_qdq"] or counts["qdq_conv2d"] != 2 * s["forwards"]:
+        fail(f"{name}: {counts['qdq_conv2d']} qdq_conv2d and "
+             f"{counts['msfp_qdq']} K1 launches over {s['forwards']} "
+             "forwards, expected two qdq_conv2d a forward and no K1")
     print(f"serve {name}: {out['summary']['requests']} requests, "
           f"{out['summary']['requests'] / out['wall_s']:.3f} req/s, "
           f"{out['evals'] / out['wall_s']:.2f} denoise evals/s, "
@@ -399,23 +482,35 @@ def serve(name: str, argv: list[str]) -> dict:
             "unit": "forward", "shapes": shapes}
 
 
+# the CUDA wrappers that phase 6 and the launch tally can replace: kernel
+# name -> (module under repro_torch.kernels, wrapper's name there)
+WRAPPERS = {"w4a4_matmul": ("w4_matmul", "w4_matmul_2d_cuda"),
+            "w4a4_conv2d": ("conv", "w4a4_conv2d_implicit_cuda"),
+            "qdq_conv2d": ("msfp_quant", "qdq_conv2d_cuda")}
+
+
 @contextlib.contextmanager
-def wrapped_kernels(wrap2, wrap3):
-    """K2's and K3's CUDA wrappers replaced by ``wrap2(f2)`` and
-    ``wrap3(f3)`` (f2, f3: the wrappers) while the context is open. A
-    wrapper counts its launches under its module-level name, so the
-    replacements take the counts over and hand them back."""
-    from repro_torch.kernels import conv as k3
-    from repro_torch.kernels import w4_matmul as k2
-    f2, f3 = k2.w4_matmul_2d_cuda, k3.w4a4_conv2d_implicit_cuda
-    r2, r3 = wrap2(f2), wrap3(f3)
-    r2.launches, r3.launches = f2.launches, f3.launches
-    k2.w4_matmul_2d_cuda, k3.w4a4_conv2d_implicit_cuda = r2, r3
+def wrapped_kernels(wraps: dict):
+    """Each named kernel's CUDA wrapper f replaced by ``wraps[name](f)``
+    while the context is open. A wrapper counts its launches under its
+    module-level name, so the replacements take the counts over and hand
+    them back."""
+    import importlib
+    swapped = []
+    for name, wrap in wraps.items():
+        module, attr = WRAPPERS[name]
+        mod = importlib.import_module(f"repro_torch.kernels.{module}")
+        f = getattr(mod, attr)
+        r = wrap(f)
+        r.launches = f.launches
+        setattr(mod, attr, r)
+        swapped.append((mod, attr, f, r))
     try:
         yield
     finally:
-        f2.launches, f3.launches = r2.launches, r3.launches
-        k2.w4_matmul_2d_cuda, k3.w4a4_conv2d_implicit_cuda = f2, f3
+        for mod, attr, f, r in swapped:
+            f.launches = r.launches
+            setattr(mod, attr, f)
 
 
 def shape_key(kernel: str, x, w, kw) -> tuple:
@@ -450,7 +545,8 @@ def recording_launches():
             return launch
         return wrap
 
-    with wrapped_kernels(recorder("w4a4_matmul"), recorder("w4a4_conv2d")):
+    with wrapped_kernels({k: recorder(k)
+                          for k in ("w4a4_matmul", "w4a4_conv2d")}):
         yield tally
 
 
@@ -484,14 +580,33 @@ def dyadic_unet_weights(params: dict, weights: dict) -> dict:
     return unflatten_paths(flat)
 
 
-def plain_kernels():
-    """K2 and K3 dispatch CUDA tensors to their plain versions (on the
-    card) while the context is open."""
+def plain_kernels(names=("w4a4_matmul", "w4a4_conv2d", "qdq_conv2d")):
+    """The named kernels (K2, K3 and the io sites' qdq_conv2d by default)
+    dispatch CUDA tensors to their plain versions (on the card) while the
+    context is open."""
     from repro_torch.kernels import conv as k3
+    from repro_torch.kernels import msfp_quant as k1
     from repro_torch.kernels import w4_matmul as k2
-    return wrapped_kernels(
-        lambda _: lambda *a, **kw: k2.w4_matmul_2d_plain(*a, **kw),
-        lambda _: lambda *a, **kw: k3.w4a4_conv2d_implicit_plain(*a, **kw))
+    plain = {"w4a4_matmul": lambda *a, **kw: k2.w4_matmul_2d_plain(*a, **kw),
+             "w4a4_conv2d":
+                 lambda *a, **kw: k3.w4a4_conv2d_implicit_plain(*a, **kw),
+             "qdq_conv2d": lambda *a, **kw: k1.qdq_conv2d_plain(*a, **kw)}
+    return wrapped_kernels({k: (lambda _, f=plain[k]: f) for k in names})
+
+
+def io_composition():
+    """The io sites run as the port ran them before qdq_conv2d, while the
+    context is open: K1's snap (its CUDA kernel), the torch f32 conv
+    (kernels/conv.py:conv2d_nhwc, cuDNN with TF32 off), the bias add."""
+    from repro_torch.kernels import conv as k3
+    from repro_torch.kernels import msfp_quant as k1
+
+    def old(x, w, act_qp, bias, *, padding="SAME"):
+        if act_qp is not None:
+            x = k1.msfp_qdq(x, act_qp)
+        y = k3.conv2d_nhwc(x, w.to(x.dtype), stride=(1, 1), padding=padding)
+        return y if bias is None else y + bias.to(y.dtype)
+    return wrapped_kernels({"qdq_conv2d": lambda _: old})
 
 
 def bf16_act_kernels():
@@ -503,14 +618,15 @@ def bf16_act_kernels():
         return lambda x, *a, **kw: f(
             x.bfloat16().float() if x.dtype == torch.float32 else x, *a,
             **kw)
-    return wrapped_kernels(wrap, wrap)
+    return wrapped_kernels({"w4a4_matmul": wrap, "w4a4_conv2d": wrap})
 
 
 @contextlib.contextmanager
 def tf32_allowed():
     """A control fault on the card only: TF32 allowed for f32 matmuls and
-    convs (a common global setting; the io sites' conv turns it off, the
-    UNet attention's two products do not)."""
+    convs (a common global setting). On the forward it reaches only the
+    UNet attention's two products: every conv, the io sites' included, runs
+    in the port's own kernels, which TF32 does not touch."""
     import torch
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     old = (cudnn.allow_tf32, matmul.allow_tf32)
@@ -560,18 +676,22 @@ def forward_checks(dev) -> dict:
 
     On ``dyadic_unet_weights`` (every W4A4 sum exact in any order), held:
     each K2/K3 call of the forward bit-exact against the CPU plain
-    version's output on the same inputs; the forward through the kernels
-    against the forward through the plain versions, both on the card, at
-    KERNEL_FORWARD_LIMIT; the card's forward against the CPU's at
-    CPU_FORWARD_LIMIT. The torch ops between the kernels (GroupNorm, SiLU,
-    softmax, the io sites' f32 conv) round differently on the two devices
-    and flip a few E2M1 act ties, which 63 layers carry to the output
-    (ROADMAP Queue C), so that limit sits between the sound reading and two
-    control faults, each of which must exceed it: K2/K3 snapping
-    bf16-rounded acts, and TF32 allowed on the card.
+    version's output on the same inputs, each io-site call (qdq_conv2d:
+    its bf16 weight makes no sum exact) within check_close; the forward
+    through the kernels against the forward through the plain versions,
+    both on the card, at KERNEL_FORWARD_LIMIT; the card's forward against
+    the CPU's at CPU_FORWARD_LIMIT. The torch ops between the kernels
+    (GroupNorm, SiLU, softmax) round differently on the two devices and
+    flip a few E2M1 act ties, which 63 layers carry to the output (ROADMAP
+    Queue C), so that limit sits between the sound reading and two control
+    faults, each of which must exceed it: K2/K3 snapping bf16-rounded
+    acts, and TF32 allowed on the card. Reported beside it: the card's
+    forward with the io sites on their old composition (K1's snap, the
+    cuDNN f32 conv, the bias add: qdq_conv2d's plain version) against the
+    CPU's.
 
-    On the random weights, held: each K2/K3 call within check_close of the
-    CPU output, and a control must break that rule (one K3 call on its
+    On the random weights, held: each call within check_close of the CPU
+    output, and a control must break that rule (one K3 call on its
     decoded weight rounded to bf16, as the Pallas kernel rounds it for bf16
     inputs). Reported, not held: the forward against the CPU's and against
     the plain versions on the card; the kernels' f32 sums run in an order
@@ -634,6 +754,10 @@ def forward_checks(dev) -> dict:
         if not exact:
             r["control_call"] = call_control(dev, calls)
             continue
+        with plain_kernels(("qdq_conv2d",)):
+            r["vs_cpu_io_composition"] = forward_diff(
+                f"{kind} weights, card vs CPU plain, the io sites on their "
+                "old composition (not held)", run(tree, dev), want)
         if not within(r["vs_card_plain"], KERNEL_FORWARD_LIMIT):
             fail("full-width forward through the kernels disagrees with "
                  "the forward through the plain versions")
@@ -661,25 +785,44 @@ def forward_checks(dev) -> dict:
         with torch.inference_mode():
             return unet_apply(p_dev, xb, tb, cfg, ctx=ctx)
 
-    fwd()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def profiled():
         fwd()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fwd()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        return prof, wall_ms
 
+    # before: the io sites as the port ran them until qdq_conv2d (K1, the
+    # torch f32 conv, the bias add); then as they run now
+    with io_composition():
+        prof, before_wall = profiled()
+    before_busy, _ = device_time(prof)
+    before = {"wall_ms": before_wall, "busy_ms": before_busy,
+              "launches": kernel_launches(prof)}
+    print(f"profile forward ddim-cifar10 B={B}, the io sites on their old "
+          f"composition (K1 + torch f32 conv + bias add): wall "
+          f"{before_wall:.3f} ms, device busy {before_busy:.3f} ms, "
+          f"{before['launches']} CUDA kernel launches", flush=True)
+    prof, wall_ms = profiled()
     busy_ms, top = device_time(prof)
     per_kernel = kernel_device_ms(prof)
+    launches = kernel_launches(prof)
     print(f"profile forward ddim-cifar10 B={B}: wall {wall_ms:.3f} ms, "
           f"device busy {busy_ms:.3f} ms, idle share "
-          f"{1 - busy_ms / wall_ms:.3f}, K2 {per_kernel['w4a4_matmul']:.3f}"
-          f" ms, K3 {per_kernel['w4a4_conv2d']:.3f} ms", flush=True)
+          f"{1 - busy_ms / wall_ms:.3f}, {launches} CUDA kernel launches, "
+          f"K2 {per_kernel['w4a4_matmul']:.3f} ms, K3 "
+          f"{per_kernel['w4a4_conv2d']:.3f} ms, io sites (qdq_conv2d) "
+          f"{per_kernel['qdq_conv2d']:.4f} ms, K1 "
+          f"{per_kernel['msfp_qdq']:.4f} ms", flush=True)
     for line in top:
         print(line, flush=True)
     res.update(profile_wall_ms=wall_ms, profile_device_busy_ms=busy_ms,
-               profile_kernel_ms=per_kernel)
+               profile_kernel_ms=per_kernel, profile_launches=launches,
+               profile_io_composition=before)
     return res
 
 
@@ -996,27 +1139,30 @@ def lm_checks(dev, steps: int = 4) -> dict:
 
 @contextlib.contextmanager
 def recording_calls(calls: list):
-    """Collect each K2/K3 call that reaches the plain versions (phase 6's
-    CPU forwards) as (kernel, args, kwargs, output)."""
+    """Collect each K2/K3 and io-site call that reaches the plain versions
+    (phase 6's CPU forwards) as (kernel, args, kwargs, output)."""
     from repro_torch.kernels import conv as k3
+    from repro_torch.kernels import msfp_quant as k1
     from repro_torch.kernels import w4_matmul as k2
-    f2, f3 = k2.w4_matmul_2d_plain, k3.w4a4_conv2d_implicit_plain
+    hooks = [(k2, "w4_matmul_2d_plain", "w4a4_matmul"),
+             (k3, "w4a4_conv2d_implicit_plain", "w4a4_conv2d"),
+             (k1, "qdq_conv2d_plain", "qdq_conv2d")]
+    saved = [getattr(mod, attr) for mod, attr, _ in hooks]
 
-    def r2(*args, **kw):
-        y = f2(*args, **kw)
-        calls.append(("w4a4_matmul", args, kw, y))
-        return y
+    def recorder(f, kernel):
+        def call(*args, **kw):
+            y = f(*args, **kw)
+            calls.append((kernel, args, kw, y))
+            return y
+        return call
 
-    def r3(*args, **kw):
-        y = f3(*args, **kw)
-        calls.append(("w4a4_conv2d", args, kw, y))
-        return y
-
-    k2.w4_matmul_2d_plain, k3.w4a4_conv2d_implicit_plain = r2, r3
+    for (mod, attr, kernel), f in zip(hooks, saved):
+        setattr(mod, attr, recorder(f, kernel))
     try:
         yield
     finally:
-        k2.w4_matmul_2d_plain, k3.w4a4_conv2d_implicit_plain = f2, f3
+        for (mod, attr, _), f in zip(hooks, saved):
+            setattr(mod, attr, f)
 
 
 def call_control(dev, calls: list) -> int:
@@ -1052,14 +1198,16 @@ def call_control(dev, calls: list) -> int:
 
 def call_checks(dev, calls: list, exact: bool) -> int:
     """Each captured CPU call of phase 6 rerun through its kernel on the
-    card and held against the CPU output: bit for bit where ``exact``,
-    else by check_close; the card's plain version's largest difference
-    from the CPU is printed beside the kernel's for scale. Returns the
-    number of calls held."""
+    card and held against the CPU output: a K2/K3 call bit for bit where
+    ``exact``, every call by check_close (an io call's bf16 weight makes
+    no sum exact; how many of them matched bit for bit is printed); the
+    card's plain version's largest difference from the CPU is printed
+    beside the kernel's for scale. Returns the number of calls held."""
     import torch
     from repro_torch.common.device import no_tf32
     from repro_torch.core.qmodule import PackedW4
     from repro_torch.kernels import conv as k3
+    from repro_torch.kernels import msfp_quant as k1
     from repro_torch.kernels import w4_matmul as k2
     from repro_torch.quant.fakequant import apply_qdq, fp_qdq
     from repro_torch.quant.formats import FPFormat
@@ -1069,11 +1217,22 @@ def call_checks(dev, calls: list, exact: bool) -> int:
             return tuple(to(u) for u in v)
         return v.to(dev) if hasattr(v, "to") else v
 
-    worst = {"w4a4_matmul": [0.0, 0.0], "w4a4_conv2d": [0.0, 0.0]}
+    worst = {"w4a4_matmul": [0.0, 0.0], "w4a4_conv2d": [0.0, 0.0],
+             "qdq_conv2d": [0.0, 0.0]}
+    io_equal = 0
     for i, (kernel, args, kw, y) in enumerate(calls):
         a, want = to(args), y.to(dev)
         with no_tf32():
-            if kernel == "w4a4_matmul":
+            if kernel == "qdq_conv2d":
+                x, w, aq, _ = a
+                got = k1.qdq_conv2d_cuda(*a, **kw)
+                plain = k1.qdq_conv2d_plain(*a, **kw)
+                xq = x if aq is None else apply_qdq(x, aq)
+                mag = k3.conv2d_nhwc(xq.abs(), w.float().abs(),
+                                     stride=(1, 1), **kw)
+                k = w.shape[0] * w.shape[1] * w.shape[2]
+                io_equal += int(torch.equal(got, want))
+            elif kernel == "w4a4_matmul":
                 x, packed, scale, zp, act = a
                 got = k2.w4_matmul_2d_cuda(*a, **kw)
                 plain = k2.w4_matmul_2d_plain(*a, **kw)
@@ -1091,7 +1250,7 @@ def call_checks(dev, calls: list, exact: bool) -> int:
                 xq = x if aq is None else apply_qdq(x, aq)
                 mag = k3.conv2d_nhwc(xq.abs(), abs_weight(pw), **kw)
                 k = pw.shape[0] * pw.shape[1] * pw.shape[2]
-        if exact and not torch.equal(got, want):
+        if exact and kernel != "qdq_conv2d" and not torch.equal(got, want):
             fail(f"{kernel} call {i} of the forward is not bit-exact with "
                  f"the CPU ({int((got != want).sum())} elements differ)")
         check_close(f"{kernel} call {i} of the forward vs the CPU", got, want,
@@ -1099,12 +1258,18 @@ def call_checks(dev, calls: list, exact: bool) -> int:
         w = worst[kernel]
         w[0] = max(w[0], float((got - want).abs().max()))
         w[1] = max(w[1], float((plain - want).abs().max()))
+    n_io = sum(c[0] == "qdq_conv2d" for c in calls)
     for kernel, (kern, plain) in worst.items():
+        how = ("bit-exact" if exact and kernel != "qdq_conv2d"
+               else "by check_close")
         print(f"forward ddim-cifar10 B={B}, {'dyadic' if exact else 'random'}"
-              f" weights, every {kernel} call held "
-              f"{'bit-exact' if exact else 'by check_close'} vs the CPU: "
+              f" weights, every {kernel} call held {how} vs the CPU: "
               f"largest difference {kern:.3g} (the card's plain version: "
-              f"{plain:.3g})", flush=True)
+              f"{plain:.3g})"
+              + (f"; {io_equal} of {n_io} bit for bit" if kernel ==
+                 "qdq_conv2d" else ""), flush=True)
+    if n_io != 2:
+        fail(f"phase 6 recorded {n_io} io-site calls of the forward, not 2")
     return len(calls)
 
 
@@ -1166,6 +1331,8 @@ def path_shapes(dev, rows: dict, runs: dict, profiled: dict) -> dict:
 # a kernel's instances in a profile: K2/K3 carry their operand loader's
 # name (split-K reduction included), the kv4 kernels their own
 KERNEL_KEYS = {"w4a4_matmul": "DenseA", "w4a4_conv2d": "ConvA",
+               "qdq_conv2d": "qdq_conv2d_kernel",
+               "msfp_qdq": "msfp_qdq_kernel",
                "kv4_store": "kv4_store_kernel",
                "kv4_attend": "kv4_attend_kernel"}
 
@@ -1188,6 +1355,13 @@ def kernel_device_ms(prof) -> dict:
     return {k: v["ms"] for k, v in kernel_ms(
         {e.key: {"ms": device_us(e) / 1e3, "launches": e.count}
          for e in kernel_rows(prof)}).items()}
+
+
+def kernel_launches(prof) -> int:
+    """The CUDA kernels a profile launched (memory copies and sets not
+    counted), as launch/profile_decode.py counts a decode step's."""
+    from repro_torch.launch.profile_decode import is_kernel, kernel_rows
+    return sum(e.count for e in kernel_rows(prof) if is_kernel(e))
 
 
 def device_time(prof, n_top: int = 8):
@@ -1232,7 +1406,9 @@ def main() -> None:
                   f"{r['plain_ms']:.4f} ms, library "
                   f"{'-' if r['library_ms'] is None else '%.4f' % r['library_ms']}"
                   f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-                  f"max abs err {r['max_abs_err']:.3g}", flush=True)
+                  f"max abs err {r['max_abs_err']:.3g}"
+                  + (f", composition it replaces {r['composition_ms']:.4f} "
+                     "ms" if "composition_ms" in r else ""), flush=True)
 
     trace = str(ROOT / "tests" / "data" / "golden_trace.jsonl")
     golden = serve("golden trace, virtual clock", [
@@ -1264,6 +1440,8 @@ def main() -> None:
     source = "src/repro_torch/kernels/csrc/"
     meta = {"msfp_qdq": (source + "msfp_quant.cu",
                          "src/repro/kernels/msfp_quant.py:55"),
+            "qdq_conv2d": (source + "msfp_quant.cu",
+                           "src/repro/kernels/msfp_quant.py:55"),
             "w4a4_matmul": (source + "w4_matmul.cu",
                             "src/repro/kernels/w4_matmul.py:240"),
             "w4a4_conv2d": (source + "conv.cu",

@@ -33,6 +33,7 @@ GEMM_TILES = {0: (128, 64, 32, 256), 1: (8, 32, 32, 128), 2: (64, 32, 32, 256)}
 # kernel's shared memory from the same values.
 ATTEND_CHUNK = 128
 ATTEND_MAX_G = 8
+BLOCK_SMEM_LIMIT = 232_448  # shared memory one block may hold on sm_90
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC",
               *(f"-DW4_TILE{c}_{name}={v}" for c, t in GEMM_TILES.items()
@@ -46,6 +47,9 @@ P, I, LL, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # cudaError_t of its launch as an int.
 SIGNATURES = {
     "msfp_qdq_launch": ("msfp_quant", [P, P, LL, P, P, I, I, I, I, P]),
+    "qdq_conv2d_launch": ("msfp_quant",
+                          [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I,
+                           I, I, P, P, I, I, I, I, I, P]),
     "w4_matmul_launch": ("w4_matmul",
                          [P, P, P, P, I, I, I, I, I, I, I, P, P, I, I, I, I,
                           I, I, I, P, P, P]),

@@ -134,9 +134,6 @@ def kv4_decode_2d(packed: torch.Tensor, scale: torch.Tensor,
 # the decode path's pair: kv4_store and kv4_attend
 # ---------------------------------------------------------------------------
 
-BLOCK_SMEM_LIMIT = 232_448  # shared memory one block may hold on sm_90
-
-
 def attend_row_stride(hd: int) -> int:
     """A staged cache row's stride in kv4_attend's shared memory: hd/2
     bytes padded so that each row starts 16-byte aligned (8 where hd/2 is
@@ -167,12 +164,12 @@ def check_attend_shape(g: int, hd: int, slots: int) -> None:
         raise ValueError(f"kv4_attend: {g} query heads per kv-head, the "
                          f"kernel takes 1 to {build.ATTEND_MAX_G}")
     need = attend_smem_bytes(g, hd, slots)
-    if need > BLOCK_SMEM_LIMIT:
+    if need > build.BLOCK_SMEM_LIMIT:
         raise ValueError(
             f"kv4_attend: {g} query heads x {slots} cache slots need {need} "
             f"bytes of shared memory (the G x S f32 logits plus the staging "
-            f"ring), above the {BLOCK_SMEM_LIMIT} one block may hold; the "
-            "kernel has no split over the cache yet")
+            f"ring), above the {build.BLOCK_SMEM_LIMIT} one block may hold; "
+            "the kernel has no split over the cache yet")
 
 
 def attend(q: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,

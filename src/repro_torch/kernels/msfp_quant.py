@@ -1,16 +1,27 @@
-"""K1: fused MSFP fake-quantization (quantize-dequantize).
+"""K1: fused MSFP fake-quantization (quantize-dequantize), and the io
+sites' conv with K1 fused into it.
 
-CUDA kernel ``csrc/msfp_quant.cu`` (replaces the TPU kernel
-``src/repro/kernels/msfp_quant.py:msfp_qdq_2d``) and its plain PyTorch
-version, bit-identical to it. ``msfp_qdq_2d`` dispatches on the tensor's
-device: a CPU tensor takes the plain version, a CUDA tensor the kernel.
+CUDA kernels in ``csrc/msfp_quant.cu``, each with its plain PyTorch
+version, and dispatchers that send a CPU tensor to the plain version and a
+CUDA tensor to the kernel:
+
+* ``msfp_qdq_2d``: K1 (replaces the TPU kernel
+  ``src/repro/kernels/msfp_quant.py:msfp_qdq_2d``), bit-identical to its
+  plain version;
+* ``qdq_conv2d``: K1's snap, the dense f32 conv and the bias of an io site
+  in one launch (replaces K1 fused with the XLA conv at
+  ``src/repro/nn/layers.py:106``); its plain version is the composition it
+  replaces, K1's plain version, ``conv.conv2d_nhwc`` and the bias add.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.quant.fakequant import KIND_FP_SIGNED, QuantizerParams, fp_qdq
+from repro_torch.quant.fakequant import (KIND_FP_SIGNED, KIND_INT_AFFINE,
+                                         QuantizerParams, fp_qdq)
 from repro_torch.quant.formats import FPFormat
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -75,3 +86,159 @@ def msfp_qdq(x: torch.Tensor, qp: QuantizerParams) -> torch.Tensor:
     return msfp_qdq_2d(x, qp.maxval, qp.zero_point, exp_bits=qp.exp_bits,
                        man_bits=qp.man_bits,
                        signed=(qp.kind == KIND_FP_SIGNED))
+
+
+# ---------------------------------------------------------------------------
+# qdq_conv2d: the io sites' act snap, dense f32 conv and bias, one launch
+# ---------------------------------------------------------------------------
+
+WEIGHT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+IO_CONV_KERNELS = (1, 3)   # the square kernel sizes qdq_conv2d takes
+
+
+class IoConvLayout(NamedTuple):
+    """A ``qdq_conv2d`` launch's band and shared-memory layout (floats):
+    ``rows`` output rows a CTA, act pixels ``cs`` apart, the narrow
+    kernel's weight rows ``ks`` apart, ``smem`` bytes in all."""
+    rows: int
+    cs: int
+    ks: int
+    smem: int
+
+
+def _odd_words(n: int) -> int:
+    """n (a multiple of 4) padded to an odd count of 16-byte words, so
+    that neighbouring threads' 16-byte reads fall in distinct banks."""
+    return n + 4 if (n // 4) % 2 == 0 else n
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def io_conv_layout(oh: int, ow: int, cin: int, cout: int, k: int,
+                   rows: int | None = None) -> IoConvLayout:
+    """The one formula for ``qdq_conv2d``'s layout, which its launch is
+    given (csrc/msfp_quant.cu carves the shared memory up the same way and
+    refuses less): the halo of ``rows`` output rows (2 by default),
+    (rows + k - 1) x (ow + k - 1) pixels of ``cs`` floats, rounded up to
+    16 bytes, then the weights: HWIO for the wide kernel (cout % 4 == 0),
+    channel-major rows of ``ks`` floats for the narrow one (a multiple of
+    its min(cout, 4) channels a thread, the padding rows zero); then the
+    bias."""
+    rows = min(rows or 2, oh)
+    kdim = k * k * cin
+    if cout % 4 != 0 and cin % 4 == 0:   # narrow, 16-byte reads over c
+        cs, ks = _odd_words(cin), _odd_words(kdim)
+    else:
+        cs, ks = cin | 1, kdim | 1
+    xs = _round4((rows + k - 1) * (ow + k - 1) * cs)
+    nc = min(cout, 4)   # the narrow kernel's channels a thread
+    ws = kdim * cout if cout % 4 == 0 else _round4(-(-cout // nc) * nc * ks)
+    return IoConvLayout(rows, cs, ks, 4 * (xs + ws + _round4(cout)))
+
+
+def io_conv_fits(x_shape, w_shape, padding="SAME") -> bool:
+    """Whether ``qdq_conv2d``'s band fits one block's shared memory."""
+    from repro_torch.kernels.conv import conv_geometry
+    k, _, cin, cout = w_shape
+    oh, ow, _, _ = conv_geometry(x_shape, k, k, (1, 1), padding)
+    return io_conv_layout(oh, ow, cin, cout, k).smem <= build.BLOCK_SMEM_LIMIT
+
+
+def qdq_conv2d_plain(x: torch.Tensor, w: torch.Tensor,
+                     act_qp: QuantizerParams | None,
+                     bias: torch.Tensor | None, *, padding="SAME"
+                     ) -> torch.Tensor:
+    """K1's plain version, then the f32 conv (TF32 off), then the bias:
+    the composition the kernel replaces, bit for bit."""
+    from repro_torch.kernels.conv import conv2d_nhwc
+    if act_qp is not None:
+        x = msfp_qdq_2d_plain(x, act_qp.maxval, act_qp.zero_point,
+                              exp_bits=act_qp.exp_bits,
+                              man_bits=act_qp.man_bits,
+                              signed=act_qp.kind == KIND_FP_SIGNED)
+    y = conv2d_nhwc(x, w.to(x.dtype), stride=(1, 1), padding=padding)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+def _aligned(t: torch.Tensor, what: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"qdq_conv2d: {what} must start 16-byte aligned "
+                         "(the kernel reads it 16 bytes at a time)")
+
+
+def qdq_conv2d_cuda(x: torch.Tensor, w: torch.Tensor,
+                    act_qp: QuantizerParams | None,
+                    bias: torch.Tensor | None, *, padding="SAME",
+                    rows: int | None = None) -> torch.Tensor:
+    """The kernel; ``rows`` forces the band height (output rows a CTA)."""
+    from repro_torch.kernels.conv import conv_geometry
+    if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("qdq_conv2d: x must be a contiguous f32 CUDA tensor")
+    if x.ndim != 4 or w.ndim != 4:
+        raise ValueError(f"qdq_conv2d: x {tuple(x.shape)} must be NHWC and "
+                         f"w {tuple(w.shape)} HWIO")
+    k, kw, cin, cout = w.shape
+    if k != kw or k not in IO_CONV_KERNELS or x.shape[-1] != cin:
+        raise ValueError(f"qdq_conv2d: weight {tuple(w.shape)} must be a "
+                         f"square {IO_CONV_KERNELS} kernel over x's "
+                         f"{x.shape[-1]} channels")
+    if w.dtype not in WEIGHT_CODES or w.device != x.device \
+            or not w.is_contiguous():
+        raise ValueError(f"qdq_conv2d: weight must be a contiguous "
+                         f"{list(WEIGHT_CODES)} tensor on {x.device}")
+    if bias is not None:
+        if bias.shape != (cout,) or bias.device != x.device:
+            raise ValueError(f"qdq_conv2d: bias {tuple(bias.shape)} must be "
+                             f"({cout},) on {x.device}")
+        bias = bias.to(torch.float32).contiguous()
+        _aligned(bias, "bias")
+    _aligned(x, "x")
+    act = (None, None, 0, 0, 0, 0)
+    if act_qp is not None:
+        if act_qp.kind == KIND_INT_AFFINE or act_qp.maxval.numel() != 1:
+            raise ValueError("qdq_conv2d fuses per-tensor FP act quantizers "
+                             "only")
+        act = (scalar_operand(act_qp.maxval, x, "maxval"),
+               scalar_operand(act_qp.zero_point, x, "zero_point"),
+               act_qp.exp_bits, act_qp.man_bits,
+               int(act_qp.kind == KIND_FP_SIGNED), 1)
+    b, h, wd, _ = x.shape
+    oh, ow, (ph0, _), (pw0, _) = conv_geometry(x.shape, k, k, (1, 1), padding)
+    if min(ph0, pw0) < 0:
+        raise ValueError(f"qdq_conv2d: negative pads {padding}")
+    lay = io_conv_layout(oh, ow, cin, cout, k, rows)
+    if lay.smem > build.BLOCK_SMEM_LIMIT:
+        raise ValueError(
+            f"qdq_conv2d: a band of {lay.rows} rows at {ow} wide x {cin} "
+            f"channels needs {lay.smem} bytes of shared memory, above the "
+            f"{build.BLOCK_SMEM_LIMIT} one block may hold")
+    out = torch.empty((b, oh, ow, cout), dtype=torch.float32, device=x.device)
+    mv, zp, eb, mb, sgn, has_act = act
+    rc = build.function("qdq_conv2d_launch")(
+        x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), b, h, wd, cin, cout, oh, ow, k, ph0, pw0, lay.rows,
+        lay.cs, lay.ks, lay.smem, None if mv is None else mv.data_ptr(),
+        None if zp is None else zp.data_ptr(), eb, mb, sgn, has_act,
+        WEIGHT_CODES[w.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "qdq_conv2d")
+    qdq_conv2d_cuda.launches += 1
+    return out
+
+
+qdq_conv2d_cuda.launches = 0
+
+
+def qdq_conv2d(x: torch.Tensor, w: torch.Tensor,
+               act_qp: QuantizerParams | None, bias: torch.Tensor | None, *,
+               padding="SAME") -> torch.Tensor:
+    """y = conv(pad(snap(x)), w) + bias at stride 1: x (B, H, W, cin) f32
+    NHWC, w (k, k, cin, cout) HWIO in f32 or bf16, act_qp a per-tensor FP
+    quantizer or None, bias (cout,) or None."""
+    if x.device.type == "cuda":
+        return qdq_conv2d_cuda(x.contiguous(), w.contiguous(), act_qp, bias,
+                               padding=padding)
+    if x.device.type == "cpu":
+        return qdq_conv2d_plain(x, w, act_qp, bias, padding=padding)
+    raise ValueError(f"qdq_conv2d: no route for device {x.device}")

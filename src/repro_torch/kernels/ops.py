@@ -1,20 +1,23 @@
 """Kernel dispatch; port of ``repro.kernels.ops``.
 
 Every op dispatches on its input's device: a CUDA tensor launches the
-hand-written kernel (K1 ``msfp_quant``, K2 ``w4_matmul``, K3 ``conv``,
-K4/K5 ``kv4`` and the decode path's ``kv4_store``/``kv4_attend``) or
-raises, a CPU tensor takes the kernel's plain PyTorch
-version. There is no fallback from a failed kernel to the plain version.
+hand-written kernel (K1 ``msfp_quant`` and the io sites' ``qdq_conv2d``
+beside it, K2 ``w4_matmul``, K3 ``conv``, K4/K5 ``kv4`` and the decode
+path's ``kv4_store``/``kv4_attend``) or raises, a CPU tensor takes the
+kernel's plain PyTorch version. There is no fallback from a failed kernel
+to the plain version.
 
 The branches that no kernel covers keep the reference's rules (INT-affine
 or per-channel act params, stacked packs -> ``kernels/ref.py``; the dense
-f32 conv/matmul of bf16-fallback weights) and, like every other decision
-here, go through ``_dispatch``, which counts it in ``ROUTES`` under
-``(op, route)``. Route labels: ``cuda`` / ``cuda:implicit`` /
-``cuda:im2col`` (a kernel), ``plain`` / ``plain:*`` (a kernel's plain
-version on the CPU), ``ref`` (an off-kernel oracle), ``torch_f32``
-(the dense f32 product at the io sites, which the reference leaves to XLA
-too) and ``torch`` (the tied LM head's readout product, likewise).
+f32 matmul of bf16-fallback weights; the dense conv that ``qdq_conv2d``
+does not cover) and, like every other decision here, go through
+``_dispatch``, which counts it in ``ROUTES`` under ``(op, route)``. Route
+labels: ``cuda`` / ``cuda:implicit`` / ``cuda:im2col`` (a kernel),
+``plain`` / ``plain:*`` (a kernel's plain version on the CPU), ``ref`` (an
+off-kernel oracle), ``torch_f32`` (a dense f32 product the reference
+leaves to XLA: ``dense_matmul``, and ``dense_conv2d`` outside
+``qdq_conv2d``'s cover) and ``torch`` (the tied LM head's readout
+product, likewise).
 
 ``CONV_ROUTE``: ``"implicit"`` (the implicit-GEMM kernel K3) or
 ``"im2col"`` (unfold + K2).
@@ -32,7 +35,8 @@ from repro_torch.kernels.conv import (conv2d_nhwc, w4a4_conv2d_im2col,
                                       w4a4_conv2d_implicit)
 from repro_torch.kernels import kv4 as _kv4
 from repro_torch.kernels.kv4 import kv4_decode_2d, kv4_encode_2d
-from repro_torch.kernels.msfp_quant import msfp_qdq
+from repro_torch.kernels.msfp_quant import (IO_CONV_KERNELS, io_conv_fits,
+                                            msfp_qdq, qdq_conv2d)
 from repro_torch.kernels.w4_matmul import w4_matmul_2d
 from repro_torch.quant.fakequant import (KIND_FP_SIGNED, KIND_FP_UNSIGNED,
                                          KIND_INT_AFFINE, QuantizerParams)
@@ -151,11 +155,37 @@ def w4a4_conv2d(x: torch.Tensor, pw: PackedW4,
         x, pw, act_qp, stride=strides, padding=padding, dtype=x.dtype))
 
 
-def dense_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride=1,
+def _io_conv_ok(x: torch.Tensor, w: torch.Tensor,
+                act_qp: QuantizerParams | None, strides, padding) -> bool:
+    """``qdq_conv2d``'s cover: f32 x, a per-tensor FP act quantizer or
+    none, stride 1, a square 1x1 or 3x3 f32/bf16 weight, and a band that
+    fits one block's shared memory."""
+    return (x.dtype == torch.float32 and x.ndim == 4 and w.ndim == 4
+            and w.dtype in (torch.float32, torch.bfloat16)
+            and (act_qp is None or (act_qp.kind != KIND_INT_AFFINE
+                                    and act_qp.maxval.numel() == 1))
+            and strides == (1, 1) and w.shape[0] == w.shape[1]
+            and w.shape[0] in IO_CONV_KERNELS
+            and io_conv_fits(x.shape, w.shape, padding))
+
+
+def dense_conv2d(x: torch.Tensor, w: torch.Tensor,
+                 act_qp: QuantizerParams | None = None,
+                 bias: torch.Tensor | None = None, *, stride=1,
                  padding="SAME") -> torch.Tensor:
-    """The f32 conv of a dense (bf16-fallback) weight: the io sites."""
-    return _dispatch("conv2d", "torch_f32", lambda: conv2d_nhwc(
-        x, w.to(x.dtype), stride=_normalize_stride(stride), padding=padding))
+    """The io sites: act snap, f32 conv of a dense (bf16-fallback) weight
+    and bias. One ``qdq_conv2d`` launch where it covers the call
+    (``_io_conv_ok``); otherwise the composition the reference runs:
+    ``msfp_quantize``, the f32 conv (``torch_f32``), the bias add."""
+    strides = _normalize_stride(stride)
+    if _io_conv_ok(x, w, act_qp, strides, padding):
+        return _dispatch("conv2d", _kernel_label(x), lambda: qdq_conv2d(
+            x, w, act_qp, bias, padding=padding))
+    if act_qp is not None:
+        x = msfp_quantize(x, act_qp)
+    y = _dispatch("conv2d", "torch_f32", lambda: conv2d_nhwc(
+        x, w.to(x.dtype), stride=strides, padding=padding))
+    return y if bias is None else y + bias.to(y.dtype)
 
 
 def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

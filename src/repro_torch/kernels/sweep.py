@@ -1,6 +1,7 @@
 """Time K2/K3 on the card at each main-path shape for every plan it accepts.
 
     python -m repro_torch.kernels.sweep        (needs a CUDA card)
+    python -m repro_torch.kernels.sweep --io   (the io sites' qdq_conv2d)
 
 For each shape it prints one markdown table row: the (tile, splits) that
 ``w4_matmul.gemm_plan`` picks and its device time per call (CUDA-graph
@@ -8,6 +9,11 @@ replays timed with CUDA events), the fastest of ``gemm_candidates`` and
 its time, and every candidate's time by tile and split count: the data
 behind the plan's rule. Signed E2M1 weights and E2M1 acts at maxval 6,
 f32 (bf16 at the LM shapes), inputs from a seeded generator.
+
+``--io`` times ``qdq_conv2d`` instead, at ddim-cifar10's two io sites
+(32x32, bf16 weights, E2M1 acts at maxval 6, a bias) at each batch of the
+engine's power-of-two buckets, for bands of 1, 2 and 4 output rows a CTA
+(``msfp_quant.io_conv_layout`` picks 2): one row per site and batch.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch
 from repro_torch.common.device import resolve_device
 from repro_torch.core.qmodule import pack_weight
 from repro_torch.kernels import conv as k3
+from repro_torch.kernels import msfp_quant as k1
 from repro_torch.kernels import w4_matmul as k2
 from repro_torch.quant.fakequant import QuantizerParams
 
@@ -73,13 +80,40 @@ def sweep(launch, m: int, n: int, k: int) -> str:
             f"{by_tile} |")
 
 
+def io_sweep(dev: torch.device, gen: torch.Generator) -> None:
+    """``qdq_conv2d`` at conv_in (3 -> 128) and conv_out (128 -> 3), 32x32,
+    for each batch and band height."""
+    aq = QuantizerParams(0, 2, 1, 4, torch.tensor(6.0)).to(dev)
+    print("| io site | B | us by output rows a CTA (CTAs) |\n"
+          "| --- | --- | --- |", flush=True)
+    for name, cin, cout in (("conv_in", 3, 128), ("conv_out", 128, 3)):
+        w = (torch.randn(3, 3, cin, cout, generator=gen)
+             * (9 * cin) ** -0.5).to(dev, torch.bfloat16)
+        bias = torch.randn(cout, generator=gen).to(dev)
+        for b in (1, 2, 4, 8):
+            x = torch.randn(b, 32, 32, cin, generator=gen).to(dev)
+            cells = []
+            for rows in (1, 2, 4):
+                us = device_ms(lambda: k1.qdq_conv2d_cuda(  # noqa: B023
+                    x, w, aq, bias, rows=rows)) * 1e3
+                cells.append(f"{rows}: {us:.2f} ({b * -(-32 // rows)})")
+            print(f"| {name} {cin}->{cout} | {b} | {' '.join(cells)} |",
+                  flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    dev = resolve_device(ap.parse_args(argv).device)
+    ap.add_argument("--io", action="store_true",
+                    help="time the io sites' qdq_conv2d instead of K2/K3")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
     if dev.type != "cuda":
         raise SystemExit("sweep times the CUDA kernels: it needs a card")
     gen = torch.Generator().manual_seed(0)
+    if args.io:
+        io_sweep(dev, gen)
+        return
     print("| shape | plan (tile, splits) us | fastest us | us by tile and "
           "splits |\n| --- | --- | --- | --- |", flush=True)
     aq = QuantizerParams(0, 2, 1, 4, torch.tensor(6.0)).to(dev)

@@ -66,18 +66,17 @@ def conv2d_apply(p: dict, x: torch.Tensor, *, stride: int = 1,
                  padding="SAME", ctx: QuantContext | None = None,
                  site: str | None = None, act_qp=None) -> torch.Tensor:
     """PackedW4 weights run the W4A4 conv kernels (K3, or im2col + K2);
-    a dense (bf16-fallback) weight gets a standalone act qdq (K1) then a
-    plain f32 conv with explicit pads."""
+    a dense (bf16-fallback) weight, the io sites, runs its act snap, f32
+    conv and bias as one op (``ops.dense_conv2d``: one ``qdq_conv2d``
+    launch where it covers the call)."""
     x = _maybe_quant_act(ctx, site, x)
     w = p["w"]
     if act_qp is None and ctx is not None:
         act_qp = ctx.serving_qp(site)
-    if isinstance(w, PackedW4):
-        y = ops.w4a4_conv2d(x, w, act_qp, stride=stride, padding=padding)
-    else:
-        if act_qp is not None:
-            x = ops.msfp_quantize(x, act_qp)
-        y = ops.dense_conv2d(x, w, stride=stride, padding=padding)
+    if not isinstance(w, PackedW4):
+        return ops.dense_conv2d(x, w, act_qp, p.get("b"), stride=stride,
+                                padding=padding)
+    y = ops.w4a4_conv2d(x, w, act_qp, stride=stride, padding=padding)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y

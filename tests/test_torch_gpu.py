@@ -5,7 +5,10 @@ marker and skips, with its reason, where torch.cuda is unavailable; run it
 there with ``python -m pytest -m gpu tests/test_torch_gpu.py``. The
 decision is taken inside a fixture, never at import.
 
-Tolerances: K1, K4, K5 and kv4_store bit-exact; kv4_attend within
+Tolerances: K1, K4, K5 and kv4_store bit-exact; qdq_conv2d (the io
+sites' snap, conv and bias) by check_close's rule against its plain
+version (the snap is K1's, bit for bit; the f32 sums run in another
+order than cuDNN's); kv4_attend within
 kernels/kv4.py:kv4_attend_allowed (the f32 sum-order bound of
 check_close's rule, carried through the softmax, plus one ulp of the load
 dtype on the weights and on the output); K2/K3 rtol = atol = 1e-5, the order
@@ -30,6 +33,7 @@ from repro_torch.kernels import w4_matmul as k2
 from repro_torch.launch.steps import (dyadic_weights, make_decode_fn,
                                       quantize_lm_for_serving)
 from repro_torch.models.lm import init_caches, lm_init
+from repro_torch.nn import layers
 from repro_torch.quant.calibrate import QuantContext
 from repro_torch.quant.fakequant import QuantizerParams, apply_qdq, fp_qdq
 from repro_torch.quant.formats import FPFormat
@@ -414,3 +418,91 @@ def test_split_k_is_deterministic(cuda):
     outs = [k3.w4a4_conv2d_implicit(xc, pw, aq, stride=(1, 1),
                                     padding="SAME") for _ in range(3)]
     assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def _io_act(kind, dev):
+    """The io kernel's act quantizers: E2M1 at maxval 6 (the main path),
+    uE2M2 with zp -0.28 (whose snap of 0 is not 0), or acts off."""
+    if kind == S:
+        return QuantizerParams(S, 2, 1, 4, torch.tensor(6.0)).to(dev)
+    if kind == U:
+        return QuantizerParams(U, 2, 2, 4, torch.tensor(3.0),
+                               torch.tensor(-0.28)).to(dev)
+    return None
+
+
+IO_CONV_CASES = [  # (b, h, w, cin, cout, k): the full-width io sites
+    # (conv_in, conv_out), ragged 7x9 images, 1x1, a narrow conv without
+    # 16-byte reads (cin % 4 != 0), a wide one with cin % 4 == 0, and the
+    # narrow kernel's other channel counts (2; 6: a group of 4 and one
+    # padded with zero weight rows)
+    (8, 32, 32, 3, 128, 3), (8, 32, 32, 128, 3, 3), (2, 7, 9, 3, 128, 3),
+    (2, 7, 9, 128, 3, 3), (2, 8, 8, 128, 3, 1), (2, 8, 8, 3, 16, 1),
+    (3, 5, 6, 6, 3, 3), (2, 9, 7, 16, 8, 3), (2, 8, 8, 16, 6, 3),
+    (1, 6, 5, 8, 2, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", [S, U, None])
+@pytest.mark.parametrize("b,h,w,cin,cout,k", IO_CONV_CASES)
+def test_qdq_conv2d_matches_plain(cuda, b, h, w, cin, cout, k, kind):
+    """f32 and bf16 weights, with and without a bias: one launch each,
+    within check_close's rule of the plain version; a band of 1, 3 or 5
+    rows gives the same bits (each output is one chain whatever the
+    band)."""
+    g = torch.Generator().manual_seed(10)
+    x = (torch.randn(b, h, w, cin, generator=g) * 2).to(cuda)
+    w32 = torch.randn(k, k, cin, cout, generator=g) * (k * k * cin) ** -0.5
+    bias = (torch.randn(cout, generator=g) * 0.1).to(cuda)
+    aq = _io_act(kind, cuda)
+    xq = x if aq is None else apply_qdq(x, aq)
+    for wt in (w32.to(cuda), w32.to(cuda, torch.bfloat16)):
+        mag = k3.conv2d_nhwc(xq.abs(), wt.float().abs(), stride=(1, 1),
+                             padding="SAME")
+        for bv in (bias, None):
+            before = k1.qdq_conv2d_cuda.launches
+            got = k1.qdq_conv2d(x, wt, aq, bv)
+            assert k1.qdq_conv2d_cuda.launches == before + 1
+            _assert_order_close(got, k1.qdq_conv2d_plain(x, wt, aq, bv),
+                                mag, k * k * cin)
+            for rows in (1, 3, 5):
+                assert torch.equal(
+                    k1.qdq_conv2d_cuda(x, wt, aq, bv, rows=rows), got)
+
+
+@pytest.mark.gpu
+def test_qdq_conv2d_raises_on_uncovered_inputs(cuda):
+    x = torch.zeros(1, 8, 8, 4, device=cuda)
+    w = torch.zeros(3, 3, 4, 4, device=cuda)
+    intq = QuantizerParams(2, 0, 0, 4, torch.tensor(3.0)).to(cuda)
+    bad = [(x.bfloat16(), w, None), (x, torch.zeros(5, 5, 4, 4, device=cuda),
+                                     None),
+           (x, w.half(), None), (x, w, intq),
+           (torch.zeros(1, 32, 32, 8192, device=cuda),
+            torch.zeros(3, 3, 8192, 4, device=cuda), None)]
+    for xb, wb, aq in bad:
+        with pytest.raises(ValueError):
+            k1.qdq_conv2d_cuda(xb, wb, aq, None)
+    with pytest.raises(ValueError):
+        k1.qdq_conv2d_cuda(x, w, None, torch.zeros(3, device=cuda))
+
+
+@pytest.mark.gpu
+def test_io_sites_on_card_take_the_kernel_only(cuda):
+    """Both io sites through ``conv2d_apply`` with a dense bf16 weight and
+    a bias: one qdq_conv2d launch each, no K1, no off-kernel route."""
+    g = torch.Generator().manual_seed(11)
+    aq = _io_act(S, cuda)
+    ops.reset_routes()
+    k1_before = k1.msfp_qdq_2d_cuda.launches
+    io_before = k1.qdq_conv2d_cuda.launches
+    for cin, cout in ((3, 128), (128, 3)):
+        p = {"w": torch.randn(3, 3, cin, cout, generator=g).to(
+                 cuda, torch.bfloat16),
+             "b": torch.randn(cout, generator=g).to(cuda)}
+        x = torch.randn(2, 32, 32, cin, generator=g).to(cuda)
+        y = layers.conv2d_apply(p, x, act_qp=aq)
+        assert y.shape == (2, 32, 32, cout)
+    assert dict(ops.ROUTES) == {("conv2d", "cuda"): 2}
+    assert k1.qdq_conv2d_cuda.launches == io_before + 2
+    assert k1.msfp_qdq_2d_cuda.launches == k1_before

@@ -95,11 +95,10 @@ def test_unet_serve_forward_matches(rng, jax_ref_kernels):
     tops.reset_routes()
     got = unet_apply(tq, t(x), t(ts), tiny_ddim(8), ctx=tctx)
     assert_forward_close(got.numpy(), np.asarray(want))
-    # every packed site ran a kernel's plain version; only the io convs
-    # took the dense f32 route
-    assert {r for _, r in tops.ROUTES} == {"plain", "plain:implicit",
-                                           "torch_f32"}
-    assert tops.ROUTES[("conv2d", "torch_f32")] == 2
+    # every site ran a kernel's plain version, the io convs (snap, conv
+    # and bias) one qdq_conv2d each
+    assert {r for _, r in tops.ROUTES} == {"plain", "plain:implicit"}
+    assert tops.ROUTES[("conv2d", "plain")] == 2
 
 
 def v_dtype(v):

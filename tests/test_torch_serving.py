@@ -191,7 +191,7 @@ def test_launcher_serves_tiny_preset_on_cpu(capsys):
     assert again["digest"] == out["digest"]     # deterministic replay
     off_kernel = {k for k in tops.ROUTES
                   if k[1] not in ("plain", "plain:implicit")}
-    assert off_kernel == {("conv2d", "torch_f32")}
+    assert off_kernel == set()
 
 
 def test_launcher_requests_mode_and_device_checks(capsys, monkeypatch):
