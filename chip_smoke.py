@@ -21,11 +21,25 @@ Phases, each fatal on failure (exit code 1, no result line):
      beside the composition it replaces (K1, the torch f32 conv, the bias
      add);
   5. serve ddim-cifar10 at full width through the launcher: the golden
-     trace under the virtual clock, then 8 requests x 10 ddim steps at
-     max-batch 8 on the wall clock; every kernel of the path must launch
-     (qdq_conv2d twice a forward, the standalone K1 never), no off-kernel
-     route may run, and the K2/K3 launches, tallied by shape, must add up
-     to their counts;
+     trace under the virtual clock; 8 requests x 10 ddim steps at
+     max-batch 8 on the wall clock (written at t=0 with save_trace and
+     replayed with --trace); deadline_mix under the slo policy on the wall
+     clock with obs on (span trace, metrics, report: the profiler's route
+     counts equal ops.ROUTES and the launch counts, the trace has the
+     request lifecycle, ticks, forwards and bank fetches, the report's
+     summary is the collector's; goodput, p95, SLO verdict, evals/s and
+     the profiler's device ms printed). In every run each kernel of the
+     path must launch (qdq_conv2d twice a forward, the standalone K1
+     never), no off-kernel route may run, and the K2/K3 launches, tallied
+     by shape, must add up to their counts. Then the golden trace replayed
+     on the card and on the CPU from the same params, router, hubs and
+     x_T: tick log, outcomes, bank counters and x_T identical, x0 held on
+     power-of-two weight scales (REPLAY_X0_LIMIT, with a control fault
+     that must break it, and TF32 as a reading) and reported on the
+     random weights, where the
+     card's digest must be the launcher's; the card replay with obs on
+     identical to obs off; and the 8 x 10 replay's evals/s with obs off
+     and on in turns (a reading);
   6. full-width forwards at batch 8 against the CPU plain versions: on
      power-of-two weight scales every K2/K3 call bit-exact and each io
      call within check_close, the forward held card vs CPU and kernels vs
@@ -66,6 +80,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -559,27 +574,6 @@ def check_shapes(name: str, shapes: collections.Counter, counts: dict):
                  f"{counts[kernel]} counted")
 
 
-def dyadic_unet_weights(params: dict, weights: dict) -> dict:
-    """``params`` with each weight of ``weights`` (by path) rescaled by a
-    factor in [0.7, 1.42) to the absmax 0.75 * 2^j nearest its own, its
-    largest entry set to exactly that: packed per tensor, every grid scale
-    is then a power of two, every decoded weight and E2M1 act (at maxval
-    6) a short dyadic number, and every W4A4 product sums exactly in f32 in
-    any order (the diffusion counterpart of steps.dyadic_weights); each
-    layer keeps its magnitude, so the forward keeps its dynamics."""
-    from repro_torch.common.tree import flatten_paths, unflatten_paths
-    flat = flatten_paths(params)
-    for path in weights:
-        w = flat[path]
-        top = float(w.abs().max())
-        target = 0.75 * 2.0 ** round(math.log2(top / 0.75))
-        w = w / top * target
-        i = int(w.abs().argmax())
-        w.view(-1)[i] = target if float(w.view(-1)[i]) > 0 else -target
-        flat[path] = w
-    return unflatten_paths(flat)
-
-
 def plain_kernels(names=("w4a4_matmul", "w4a4_conv2d", "qdq_conv2d")):
     """The named kernels (K2, K3 and the io sites' qdq_conv2d by default)
     dispatch CUDA tensors to their plain versions (on the card) while the
@@ -708,6 +702,7 @@ def forward_checks(dev) -> dict:
     from repro_torch.nn.unet import io_sites, unet_apply, unet_init
     from repro_torch.quant.calibrate import QuantContext
     from repro_torch.quant.fakequant import QuantizerParams
+    from repro_torch.serving.replay import dyadic_unet_weights
     from repro_torch.serving.weight_bank import (_tree_to,
                                                  default_serving_plan,
                                                  pack_param_tree)
@@ -824,6 +819,310 @@ def forward_checks(dev) -> dict:
                profile_kernel_ms=per_kernel, profile_launches=launches,
                profile_io_composition=before)
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 5, continued: the golden replay held card vs CPU, a full-width
+# scenario run with obs on, and what obs costs.
+# ---------------------------------------------------------------------------
+
+GOLDEN = ROOT / "tests" / "data" / "golden_trace.jsonl"
+# The golden replay's x0, card vs CPU, on power-of-two weight scales,
+# relative to the model's part of x0 (serving/replay.py:x0_error: x0 minus
+# the eps-free x0 of the same x_T; the x_T part is some 1e4 times larger and
+# sets x0's f32 resolution, so an element counts as off only above 4 ulps of
+# itself as well). Derived as phase 6's limit was, between the sound reading
+# and a control fault: on an NVIDIA H100 80GB HBM3 at 700.00 W the sound
+# replay reads 0.0209 with 16.86% of elements off, and K2/K3 snapping
+# bf16-rounded acts reads 0.287 with 99.56% off. Not phase 6's 1e-2 and 1%:
+# the sampler's eps coefficients add up (all of one sign), so x0's model
+# part carries its forwards' errors as they are, and the replay's forwards
+# (t from 99 down on pure-noise x_T, batches of 1-4, each step's input
+# carrying the last step's difference) differ card vs CPU by more than
+# phase 6's single forward (0.002); each tick's eps error is printed. TF32
+# in the attention products (phase 6's second control, 0.227 on a forward)
+# reads 0.0299 with 34.46% off here: a reading, not held, too close to the
+# sound reading to be a control.
+REPLAY_X0_LIMIT = (5e-2, 0.4)
+
+
+def write_requests_trace(path: str, n: int = 8, steps: int = 10) -> str:
+    """``n`` ddim requests of ``steps`` steps, seeds 0..n-1, all arriving
+    at t=0 (what the launcher's ``--requests`` meant before it became the
+    scenario's count), written with the port's ``save_trace``."""
+    from repro_torch.serving.traffic import TraceRequest, save_trace
+    save_trace(path, [TraceRequest(arrival=0.0, steps=steps, seed=i, rid=i)
+                      for i in range(n)],
+               meta={"requests": n, "steps": steps, "arrival": 0.0})
+    return path
+
+
+def golden_setup(dyadic: bool):
+    """ddim-cifar10 as ``launch/serve_diffusion.py --seed 0`` builds it
+    (params, then the abs-max plan, hubs and router from the same
+    generator), on the CPU, optionally on ``dyadic_unet_weights``. The
+    bank merges each hub's B·A before packing; B is 0 in untrained hubs,
+    which keeps the dyadic scales dyadic: checked here."""
+    import torch
+    from repro_torch.common.tree import flatten_paths
+    from repro_torch.configs.diffusion_presets import ddim_cifar10
+    from repro_torch.diffusion.schedule import make_schedule
+    from repro_torch.launch.serve_diffusion import TALORA_CFG
+    from repro_torch.nn.unet import io_sites, unet_init
+    from repro_torch.serving import absmax_talora_setup
+    from repro_torch.serving.replay import dyadic_unet_weights
+    cfg = ddim_cifar10()
+    gen = torch.Generator().manual_seed(0)
+    params = unet_init(gen, cfg, "cpu")
+    if dyadic:
+        params = dyadic_unet_weights(params, {
+            k: v for k, v in flatten_paths(params).items()
+            if k.endswith("/w") and v.ndim >= 2})
+    plan, hubs, router = absmax_talora_setup(params, TALORA_CFG, gen,
+                                             io_sites=io_sites(params))
+    nonzero = sorted(k for k, h in hubs.items() if bool(h["B"].any()))
+    if nonzero:
+        fail(f"the launcher's hubs have B != 0 at {nonzero[:3]}: the bank's "
+             "merge would move the weights off their scales")
+    return cfg, make_schedule("linear", 100), params, plan, hubs, router
+
+
+def golden_replay(setup, device, obs=None) -> dict:
+    """The golden trace through an engine on ``device`` under the virtual
+    clock, as the launcher runs it (max-batch 4, bank cap 4, E2M1 acts at
+    maxval 6): serving/replay.py's record, plus the outcome digest and
+    each tick's eps (on the CPU)."""
+    import torch
+    from repro_torch.launch.serve_diffusion import TALORA_CFG, outcome_digest
+    from repro_torch.quant.fakequant import KIND_FP_SIGNED, QuantizerParams
+    from repro_torch.serving import (DiffusionServingEngine, VirtualClock,
+                                     WeightBank)
+    from repro_torch.serving.replay import replay
+    from repro_torch.serving.traffic import load_trace
+    cfg, sched, params, plan, hubs, router = setup
+    bank = WeightBank(params, plan, hubs, router, TALORA_CFG, sched.T,
+                      max_cached=4, device=device)
+    engine = DiffusionServingEngine(
+        cfg, sched, bank, act_qps={"*": QuantizerParams(
+            KIND_FP_SIGNED, 2, 1, 4, torch.tensor(6.0, device=device))},
+        max_batch=4, clock=VirtualClock(), device=device, obs=obs)
+    eps = []
+    forward = engine._forward
+
+    def logged(*a):
+        out = forward(*a)
+        eps.append(out.detach().to("cpu", copy=True))
+        return out
+    engine._forward = logged
+    if obs is not None:
+        obs.install_kernels()
+    try:
+        r = replay(engine, load_trace(str(GOLDEN))[0])
+    finally:
+        if obs is not None:
+            obs.uninstall_kernels()
+    r["digest"] = outcome_digest(engine.results)
+    r["eps"] = eps
+    return r
+
+
+def eps_by_tick(card: dict, host: dict) -> list:
+    """Each tick's eps, card vs CPU: relative Frobenius error (the ticks
+    match one to one: their logs are identical)."""
+    return [float((a.double() - b.double()).norm()
+                  / max(float(b.double().norm()), 1e-30))
+            for a, b in zip(card["eps"], host["eps"])]
+
+
+def x0_line(what: str, d: dict) -> None:
+    print(f"golden replay ddim-cifar10 x0, {what}: relative Frobenius "
+          f"error {d['rel_frobenius']:.3g} of the model's part (rms "
+          f"{d['model_part_rms']:.3g}; x0 rms {d['x0_rms']:.3g}), "
+          f"{d['frac_off']:.4%} of elements off, max abs err "
+          f"{d['max_abs_err']:.3g}", flush=True)
+
+
+def replay_checks(dev, launcher_digest: str) -> dict:
+    """Phase 5: the golden trace replayed at full width on the card and on
+    the CPU from the same params, router, hubs and x_T (each request's,
+    drawn on the host from its seed). Under the virtual clock the routing
+    and the scheduler's decisions do not depend on numerics, so the tick
+    log, the outcomes, the bank counters and x_T must be identical, on
+    both weight sets. On dyadic_unet_weights x0 is held card vs CPU at
+    REPLAY_X0_LIMIT, and a control fault (K2/K3 snapping bf16-rounded acts)
+    must break it; TF32 allowed on the card is a reading; on the random
+    weights the x0 error is a reading, and the card's replay must give the
+    launcher's golden digest. Then the card replay again with obs on
+    (tracer, registry and kernel profiler): tick log, outcomes and x0 must
+    equal the replay with obs off. Every reading is printed before any
+    limit is applied."""
+    import torch
+    from repro_torch.serving.obs import Observability
+    from repro_torch.serving.replay import (eps_free_x0, replay_mismatches,
+                                            x0_error)
+    from repro_torch.serving.traffic import load_trace
+    print("--- golden replay, card vs CPU", flush=True)
+    res, runs = {}, {}
+    cpu = torch.device("cpu")
+    held = "K2/K3 snap bf16-rounded acts"
+    controls = ((held, bf16_act_kernels),
+                ("TF32 allowed on the card", tf32_allowed))
+    for kind in ("dyadic", "random"):
+        setup = golden_setup(kind == "dyadic")
+        t0 = time.perf_counter()
+        card = golden_replay(setup, dev)
+        t1 = time.perf_counter()
+        host = golden_replay(setup, cpu)
+        t2 = time.perf_counter()
+        bad = replay_mismatches(card, host)
+        if bad:
+            fail(f"golden replay ({kind} weights), card vs CPU: "
+                 + "; ".join(bad))
+        cfg = setup[0]
+        base = eps_free_x0(load_trace(str(GOLDEN))[0], setup[1],
+                           (1, cfg.image_size, cfg.image_size, cfg.in_ch))
+        d = res[kind] = x0_error(card["x0"], host["x0"], base)
+        print(f"golden replay ({kind} weights): tick log ({len(card['ticks'])}"
+              f" ticks), outcomes, bank counters {card['bank']} and x_T "
+              f"identical card vs CPU; card {t1 - t0:.1f}s, CPU "
+              f"{t2 - t1:.1f}s", flush=True)
+        x0_line(f"{kind} weights, card vs CPU" + (
+            held_to(REPLAY_X0_LIMIT) if kind == "dyadic" else " (not held)"),
+            d)
+        d["eps_by_tick"] = eps_by_tick(card, host)
+        print(f"golden replay ({kind} weights), each tick's eps card vs CPU, "
+              "relative Frobenius error: "
+              + ", ".join(f"{e:.3g}" for e in d["eps_by_tick"]), flush=True)
+        runs[kind] = (setup, card)
+        if kind == "random":
+            continue
+        for name, fault in controls:
+            with fault():
+                ctl = golden_replay(setup, dev)
+            d[f"control: {name}"] = x0_error(ctl["x0"], host["x0"], base)
+            x0_line(f"dyadic weights, control fault ({name}), card vs CPU "
+                    + ("(must exceed the limit)" if name == held
+                       else "(not held)"), d[f"control: {name}"])
+    if not within(res["dyadic"], REPLAY_X0_LIMIT):
+        fail("golden replay x0 on the card disagrees with the CPU's")
+    if within(res["dyadic"][f"control: {held}"], REPLAY_X0_LIMIT):
+        fail(f"control fault '{held}' stays within the golden replay's x0 "
+             "limit: the limit would not see it")
+    setup, card = runs["random"]
+    if card["digest"] != launcher_digest:
+        fail(f"golden replay digest {card['digest']} differs from the "
+             f"launcher's {launcher_digest} on the same weights")
+    obs = Observability()
+    on = golden_replay(setup, dev, obs)
+    bad = replay_mismatches(on, card)
+    if bad or not all(torch.equal(on["x0"][r], card["x0"][r])
+                      for r in card["x0"]):
+        fail("golden replay on the card with obs on differs from obs off: "
+             + ("; ".join(bad) or "x0 differs"))
+    n_events = len(obs.tracer.events())
+    if not n_events:
+        fail("golden replay with obs on recorded no trace events")
+    res["obs_on_off_identical"] = True
+    print(f"golden replay on the card, obs on vs off: tick log, outcomes, "
+          f"bank counters and x0 identical ({n_events} trace events with "
+          "obs on)", flush=True)
+    return res
+
+
+TRACE_EVENTS = ("request", "admit", "eval", "tick", "forward", "bank_fetch")
+# each diffusion kernel's (op, route) in the dispatch counts on the card
+PROFILED_ROUTES = {"w4a4_matmul": ("w4a4_matmul", "cuda"),
+                   "w4a4_conv2d": ("w4a4_conv2d", "cuda:implicit"),
+                   "qdq_conv2d": ("conv2d", "cuda")}
+
+
+def scenario_run(tmp: str) -> dict:
+    """Phase 5: deadline_mix under the slo policy on the wall clock at full
+    width, obs on (span trace, metrics text and report). Besides serve's
+    checks: the profiler's route counts equal ops.ROUTES and each kernel's
+    launch count; the trace loads and has the request lifecycle (submit,
+    admit, eval, complete or expire), ticks, forwards and bank fetches;
+    the report's summary is the collector's."""
+    from repro_torch.kernels import ops
+    paths = {k: f"{tmp}/deadline_mix.{k}" for k in ("trace.json",
+                                                    "metrics.txt",
+                                                    "report.json")}
+    run = serve("deadline_mix, slo policy, wall clock, obs on", [
+        "--preset", "ddim-cifar10", "--scenario", "deadline_mix",
+        "--policy", "slo", "--device", "cuda",
+        "--trace-out", paths["trace.json"],
+        "--metrics-out", paths["metrics.txt"],
+        "--report-json", paths["report.json"]])
+    with open(paths["report.json"]) as f:
+        report = json.load(f)
+    routes = {f"{op}:{r}": n for (op, r), n in ops.ROUTES.items()}
+    if report["kernel_routes"] != routes:
+        fail(f"profiler route counts {report['kernel_routes']} != "
+             f"ops.ROUTES {routes}")
+    counts = run["counts"]
+    for kernel, (op, r) in PROFILED_ROUTES.items():
+        key = f"{op}:{r}"
+        if routes.get(key, 0) != counts[kernel]:
+            fail(f"profiler counted {routes.get(key, 0)} {key}, the kernel "
+                 f"{counts[kernel]} launches")
+    with open(paths["trace.json"]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events}
+    missing = [n for n in TRACE_EVENTS if n not in names]
+    ends = {e["args"].get("outcome") for e in events
+            if e["name"] == "request" and e["ph"] == "e"}
+    if (missing or not any(e["name"] == "request" and e["ph"] == "b"
+                           for e in events) or not ends <= {"complete",
+                                                            "expired"}
+            or not ends):
+        fail(f"span trace lacks {missing or 'a request begin or end'}")
+    want = run["out"]["collector_summary"]
+    got = {k: v for k, v in report["summary"].items()
+           if k not in ("scenario", "wall_s")}
+    if got != want:
+        fail(f"report summary {got} != the collector's {want}")
+    s = report["summary"]
+    snap = report["obs"]
+    dev_ms = {k: 1e3 * snap.get(f'kernel_call_seconds{{op="{op}",'
+                                f'route="{r}"}}_sum', 0.0)
+              for k, (op, r) in (("K2", PROFILED_ROUTES["w4a4_matmul"]),
+                                 ("K3", PROFILED_ROUTES["w4a4_conv2d"]),
+                                 ("qdq_conv2d",
+                                  PROFILED_ROUTES["qdq_conv2d"]))}
+    slo = report["slo"]
+    out = {"goodput_frac": s["goodput_frac"], "p95_s": s["p95_s"],
+           "slo_passed": slo["passed"], "expired": s["expired"],
+           "evals_per_s": run["out"]["evals"] / run["out"]["wall_s"],
+           "wall_s": run["out"]["wall_s"], "profiler_span_ms": dev_ms,
+           "trace_events": len(events)}
+    print(f"scenario deadline_mix (slo, wall clock, obs on): goodput "
+          f"{s['goodput_frac']:.4f}, p95 {s['p95_s']:.4f} s, SLO "
+          f"{'PASS' if slo['passed'] else 'FAIL'} "
+          f"{ {k: c['actual'] for k, c in slo['checks'].items()} }, "
+          f"{s['expired']} expired, {out['evals_per_s']:.2f} denoise "
+          f"evals/s, profiler CUDA-event spans ms K2 {dev_ms['K2']:.3f}, K3 "
+          f"{dev_ms['K3']:.3f}, qdq_conv2d {dev_ms['qdq_conv2d']:.4f}; "
+          f"{len(events)} trace events", flush=True)
+    run["scenario"] = out
+    return run
+
+
+def obs_overhead(trace: str, tmp: str) -> dict:
+    """Phase 5: the 8 x 10 replay with obs off and on in turns (off, on,
+    on, off); denoise evals/s of each, a reading with no limit (walls move
+    by up to 40% between calls)."""
+    from repro_torch.launch import serve_diffusion
+    rates = {"off": [], "on": []}
+    for i, mode in enumerate(("off", "on", "on", "off")):
+        argv = ["--preset", "ddim-cifar10", "--trace", trace,
+                "--max-batch", "8", "--device", "cuda"]
+        if mode == "on":
+            argv += ["--report-json", f"{tmp}/overhead{i}.json"]
+        out = serve_diffusion.main(argv)
+        rates[mode].append(out["evals"] / out["wall_s"])
+    print(f"obs overhead, 8 x 10 replay (off, on, on, off): denoise evals/s "
+          f"off {rates['off']}, on {rates['on']}", flush=True)
+    return rates
 
 
 def kv4_checks(dev) -> dict:
@@ -1410,19 +1709,26 @@ def main() -> None:
                   + (f", composition it replaces {r['composition_ms']:.4f} "
                      "ms" if "composition_ms" in r else ""), flush=True)
 
-    trace = str(ROOT / "tests" / "data" / "golden_trace.jsonl")
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
     golden = serve("golden trace, virtual clock", [
-        "--preset", "ddim-cifar10", "--trace", trace,
+        "--preset", "ddim-cifar10", "--trace", str(GOLDEN),
         "--replay-clock", "virtual", "--device", "cuda"])
+    trace8 = write_requests_trace(f"{tmp}/requests_8x10.jsonl")
     wall = serve("8 requests x 10 steps, wall clock", [
-        "--preset", "ddim-cifar10", "--requests", "8", "--steps", "10",
+        "--preset", "ddim-cifar10", "--trace", trace8,
         "--max-batch", "8", "--device", "cuda"])
+    scenario = scenario_run(tmp)
+    replayed = replay_checks(dev, golden["out"]["digest"])
+    overhead = obs_overhead(trace8, tmp)
+    tmp_dir.cleanup()
     fwd = forward_checks(dev)
     lm_serve = serve_lm()
     lm = lm_checks(dev)
     # each path's own launches, per forward (diffusion) or per decode step
     # (LM: prompt steps and generated steps alike)
     paths = {"ddim-cifar10 golden trace": golden, "ddim-cifar10 8x10": wall,
+             "ddim-cifar10 deadline_mix slo": scenario,
              "smollm-135m serve": lm_serve}
     by_path = {k: {name: {"launches": run["counts"][k],
                           f"per_{run['unit'].replace(' ', '_')}":
@@ -1473,7 +1779,12 @@ def main() -> None:
     print(json.dumps({"kernels": kernels,
                       "serve": {"golden_digest": golden["out"]["digest"],
                                 "wall_req_per_s": wall["out"]["summary"][
-                                    "requests"] / wall["out"]["wall_s"]},
+                                    "requests"] / wall["out"]["wall_s"],
+                                "wall_evals_per_s": wall["out"]["evals"]
+                                / wall["out"]["wall_s"],
+                                "deadline_mix": scenario["scenario"],
+                                "golden_replay": replayed,
+                                "obs_overhead_evals_per_s": overhead},
                       "forward": fwd, "launches_x_ms": path_sums,
                       "lm": {"tok_s": lm_serve["tok_s"],
                              "peak_mib": lm_serve["peak_mib"],

@@ -21,6 +21,10 @@ product, likewise).
 
 ``CONV_ROUTE``: ``"implicit"`` (the implicit-GEMM kernel K3) or
 ``"im2col"`` (unfold + K2).
+
+``PROFILER``: ``None``, or an installed ``serving.obs.KernelProfiler``
+that ``_dispatch`` hands each call to (``PROFILER.call(op, route, thunk,
+probe=x)``); with ``None`` a dispatch costs one more global read.
 """
 from __future__ import annotations
 
@@ -48,9 +52,14 @@ ROUTES: collections.Counter = collections.Counter()
 
 KERNEL_ROUTES = ("cuda", "cuda:implicit", "cuda:im2col")
 
+# the obs layer's per-route profiler, when one is installed
+PROFILER = None
 
-def _dispatch(op: str, route: str, thunk):
+
+def _dispatch(op: str, route: str, thunk, probe=None):
     ROUTES[(op, route)] += 1
+    if PROFILER is not None:
+        return PROFILER.call(op, route, thunk, probe=probe)
     return thunk()
 
 
@@ -67,9 +76,9 @@ def msfp_quantize(x: torch.Tensor, qp: QuantizerParams) -> torch.Tensor:
     parameters; INT-affine and per-channel maxvals take the oracle."""
     if qp.kind != KIND_INT_AFFINE and qp.maxval.numel() == 1:
         return _dispatch("msfp_quantize", _kernel_label(x),
-                         lambda: msfp_qdq(x, qp))
+                         lambda: msfp_qdq(x, qp), x)
     return _dispatch("msfp_quantize", "ref",
-                     lambda: _ref.ref_msfp_qdq(x, qp))
+                     lambda: _ref.ref_msfp_qdq(x, qp), x)
 
 
 def _w4_ok(pw: PackedW4) -> bool:
@@ -92,10 +101,10 @@ def w4_matmul(x: torch.Tensor, pw: PackedW4) -> torch.Tensor:
     x2 = x.reshape(-1, x.shape[-1])
     if _w4_ok(pw):
         out = _dispatch("w4_matmul", _kernel_label(x), lambda: w4_matmul_2d(
-            x2, pw.packed, pw.scale, pw.zero_point, None, **_w4_args(pw)))
+            x2, pw.packed, pw.scale, pw.zero_point, None, **_w4_args(pw)), x2)
     else:
         out = _dispatch("w4_matmul", "ref",
-                        lambda: _ref.ref_w4_matmul(x2, pw, x.dtype))
+                        lambda: _ref.ref_w4_matmul(x2, pw, x.dtype), x2)
     return out.reshape(*lead, out.shape[-1])
 
 
@@ -112,10 +121,10 @@ def w4a4_matmul(x: torch.Tensor, pw: PackedW4,
         act = (act_qp.maxval, act_qp.zero_point, act_qp.exp_bits,
                act_qp.man_bits, act_qp.kind == KIND_FP_SIGNED)
         out = _dispatch("w4a4_matmul", _kernel_label(x), lambda: w4_matmul_2d(
-            x2, pw.packed, pw.scale, pw.zero_point, act, **_w4_args(pw)))
+            x2, pw.packed, pw.scale, pw.zero_point, act, **_w4_args(pw)), x2)
     else:
         out = _dispatch("w4a4_matmul", "ref",
-                        lambda: _ref.ref_w4a4_matmul(x2, pw, act_qp, x.dtype))
+                        lambda: _ref.ref_w4a4_matmul(x2, pw, act_qp, x.dtype), x2)
     return out.reshape(*lead, out.shape[-1])
 
 
@@ -146,13 +155,13 @@ def w4a4_conv2d(x: torch.Tensor, pw: PackedW4,
         fn = w4a4_conv2d_implicit if route == "implicit" else w4a4_conv2d_im2col
         return _dispatch("w4a4_conv2d", f"{_kernel_label(x)}:{route}",
                          lambda: fn(x, pw, act_qp, stride=strides,
-                                    padding=padding))
+                                    padding=padding), x)
     if act_qp is not None and not (act_qp.kind == KIND_FP_SIGNED
                                    and act_qp.maxval.numel() == 1):
         x = msfp_quantize(x, act_qp)
         act_qp = None
     return _dispatch("w4a4_conv2d", "ref", lambda: _ref.ref_w4a4_conv2d(
-        x, pw, act_qp, stride=strides, padding=padding, dtype=x.dtype))
+        x, pw, act_qp, stride=strides, padding=padding, dtype=x.dtype), x)
 
 
 def _io_conv_ok(x: torch.Tensor, w: torch.Tensor,
@@ -180,11 +189,11 @@ def dense_conv2d(x: torch.Tensor, w: torch.Tensor,
     strides = _normalize_stride(stride)
     if _io_conv_ok(x, w, act_qp, strides, padding):
         return _dispatch("conv2d", _kernel_label(x), lambda: qdq_conv2d(
-            x, w, act_qp, bias, padding=padding))
+            x, w, act_qp, bias, padding=padding), x)
     if act_qp is not None:
         x = msfp_quantize(x, act_qp)
     y = _dispatch("conv2d", "torch_f32", lambda: conv2d_nhwc(
-        x, w.to(x.dtype), stride=strides, padding=padding))
+        x, w.to(x.dtype), stride=strides, padding=padding), x)
     return y if bias is None else y + bias.to(y.dtype)
 
 
@@ -193,7 +202,7 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     def run():
         with no_tf32():
             return x @ w.to(x.dtype)
-    return _dispatch("matmul", "torch_f32", run)
+    return _dispatch("matmul", "torch_f32", run, x)
 
 
 def tied_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -202,14 +211,14 @@ def tied_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     def run():
         with no_tf32():
             return x @ table.to(x.dtype).T
-    return _dispatch("tied_logits", "torch", run)
+    return _dispatch("tied_logits", "torch", run, x)
 
 
 def kv4_encode(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """t: (..., hd) -> packed (..., hd/2) uint8 + scale (...,) f16 (K4)."""
     lead, hd = t.shape[:-1], t.shape[-1]
     packed, scale = _dispatch("kv4_encode", _kernel_label(t),
-                              lambda: kv4_encode_2d(t.reshape(-1, hd)))
+                              lambda: kv4_encode_2d(t.reshape(-1, hd)), t)
     return packed.reshape(*lead, hd // 2), scale.reshape(lead)
 
 
@@ -219,7 +228,7 @@ def kv4_decode(packed: torch.Tensor, scale: torch.Tensor,
     lead, hh = packed.shape[:-1], packed.shape[-1]
     out = _dispatch("kv4_decode", _kernel_label(packed),
                     lambda: kv4_decode_2d(packed.reshape(-1, hh),
-                                          scale.reshape(-1), dtype))
+                                          scale.reshape(-1), dtype), packed)
     return out.reshape(*lead, 2 * hh)
 
 
@@ -230,7 +239,7 @@ def kv4_store(k_new: torch.Tensor, v_new: torch.Tensor, k: torch.Tensor,
     packed cache (k, v (B, S, K, hd/2) uint8; k_scale, v_scale (B, S, K)
     f16), in place: one ``kv4_store`` launch."""
     _dispatch("kv4_store", _kernel_label(k_new), lambda: _kv4.kv4_store(
-        k_new, v_new, k, v, k_scale, v_scale, pos))
+        k_new, v_new, k, v, k_scale, v_scale, pos), k_new)
 
 
 def kv4_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -240,4 +249,4 @@ def kv4_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     packed cache -> o (B, K, G, hd) in q.dtype: one ``kv4_attend``
     launch, the cache decoded where it is read."""
     return _dispatch("kv4_attend", _kernel_label(q), lambda: _kv4.kv4_attend(
-        q, k, v, k_scale, v_scale, valid_len, scale, softcap))
+        q, k, v, k_scale, v_scale, valid_len, scale, softcap), q)

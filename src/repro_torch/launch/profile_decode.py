@@ -27,6 +27,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.common.clock import wall_clock
 from repro_torch.configs.registry import get_config
 from repro_torch.launch.steps import make_decode_fn, quantize_lm_for_serving
 from repro_torch.models.lm import init_caches, lm_init
@@ -72,17 +73,19 @@ def decode_step_profile(cfg, batch: int, slots: int, pos: int,
         torch.cuda.synchronize()
         times, cpu = [], []
         for _ in range(walls):
-            t0, c0 = time.perf_counter(), time.thread_time()
+            # thread_time is this thread's CPU time on the host, not a
+            # wall clock: what the host spends issuing the step
+            t0, c0 = wall_clock(), time.thread_time()
             step(p, caches, tok, pos)
             torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
+            times.append((wall_clock() - t0) * 1e3)
             cpu.append((time.thread_time() - c0) * 1e3)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+            t0 = wall_clock()
             step(p, caches, tok, pos)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+            wall_ms = (wall_clock() - t0) * 1e3
     rows = kernel_rows(prof)
     busy_ms = sum(device_us(e) for e in rows) / 1e3
     step_ms = sorted(times)[len(times) // 2]

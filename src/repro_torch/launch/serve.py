@@ -16,10 +16,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import time
 
 import torch
 
+from repro_torch.common.clock import wall_clock
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.kernels import kv4, ops, w4_matmul
@@ -78,12 +78,12 @@ def main(argv=None) -> dict:
 
     params = lm_init(gen, cfg, device)
     if args.quant in ("w4", "w4pc"):
-        t0 = time.perf_counter()
+        t0 = wall_clock()
         params = quantize_lm_for_serving(params, searched=False,
                                          per_channel=(args.quant == "w4pc"))
         _sync(device)
         print(f"quantized to W4 ({args.quant}) in "
-              f"{time.perf_counter() - t0:.1f}s")
+              f"{wall_clock() - t0:.1f}s")
     ctx = None
     if args.act_quant == "fp4" and args.quant == "bf16":
         print("note: --act-quant fp4 with --quant bf16 quantizes activations "
@@ -101,23 +101,23 @@ def main(argv=None) -> dict:
     with torch.inference_mode():
         # prefill by stepping the prompt (teacher-forced decode fills caches)
         _sync(device)
-        t0 = time.perf_counter()
+        t0 = wall_clock()
         logits = None
         for i in range(args.prompt_len):
             logits, caches = dec(params, caches, prompts[:, i:i + 1], i)
         _sync(device)
-        prefill_s = time.perf_counter() - t0
+        prefill_s = wall_clock() - t0
 
         out_tokens = []
         before = _launches()
-        t0 = time.perf_counter()
+        t0 = wall_clock()
         tok = logits[:, -1:].argmax(-1)
         for i in range(args.gen_len):
             out_tokens.append(tok[:, 0])
             logits, caches = dec(params, caches, tok, args.prompt_len + i)
             tok = logits[:, -1:].argmax(-1)
         _sync(device)
-        decode_s = time.perf_counter() - t0
+        decode_s = wall_clock() - t0
     per_step = {k: (n - before[k]) / max(args.gen_len, 1)
                 for k, n in _launches().items()}
     gen_ids = torch.stack(out_tokens, dim=1).cpu()

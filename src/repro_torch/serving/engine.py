@@ -43,11 +43,11 @@ cost, with group-splitting preemption — see ``scheduler``); the engine
 feeds the scheduler's ``CostModel`` with observed forward and
 segment-build durations measured on the engine clock.
 
-The instrumentation points of the reference (request/tick/fetch/forward
-spans, per-tick registry samples) stay in place, each behind one
-``obs.enabled`` branch; this slice ships only the disabled ``NULL_OBS``
-(``serving/obs``), and the obs layer itself comes with ROADMAP Queue A
-item 9.
+Observability (``serving/obs``): request/tick/fetch/forward spans and
+per-tick registry samples, each behind one ``obs.enabled`` branch; the
+default ``NULL_OBS`` skips them all, an ``Observability`` bundle records
+them on the engine's own clock (so a ``VirtualClock`` replay traces
+deterministically, and outcomes are the same with obs on or off).
 """
 from __future__ import annotations
 

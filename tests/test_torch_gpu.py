@@ -16,12 +16,19 @@ of the f32 sums and per-term roundings of the scales being the only
 differences (at long K, or the f32 sum-order bound where larger, as
 chip_smoke.py:check_close; bit-exact on power-of-two scales); an LM decode on the card vs the
 CPU as in tests/test_torch_lm.py (f32: 1e-4 of max |logit|, same argmax;
-bf16: relative Frobenius error 2e-2)."""
+bf16: relative Frobenius error 2e-2); the golden replay at tiny_ddim(8)
+card vs CPU: tick log, outcomes, bank counters and x_T identical, x0 on
+power-of-two weight scales within chip_smoke.py's REPLAY_X0_LIMIT (the
+relative Frobenius error of the model's part of x0 <= 5e-2, at most 40% of
+the elements off, which K2/K3 snapping bf16-rounded acts must break)."""
 import dataclasses
+import pathlib
 
 import pytest
 import torch
 
+from repro_torch.common.tree import flatten_paths
+from repro_torch.configs.diffusion_presets import tiny_ddim
 from repro_torch.configs.smollm_135m import smoke as smollm_smoke
 from repro_torch.core.qmodule import (PackedW4, decode_codes, pack_weight,
                                       unpack_nibbles)
@@ -30,13 +37,22 @@ from repro_torch.kernels import kv4 as k45
 from repro_torch.kernels import msfp_quant as k1
 from repro_torch.kernels import ops
 from repro_torch.kernels import w4_matmul as k2
+from repro_torch.diffusion.schedule import make_schedule
+from repro_torch.launch.serve_diffusion import TALORA_CFG
 from repro_torch.launch.steps import (dyadic_weights, make_decode_fn,
                                       quantize_lm_for_serving)
 from repro_torch.models.lm import init_caches, lm_init
 from repro_torch.nn import layers
+from repro_torch.nn.unet import io_sites, unet_init
 from repro_torch.quant.calibrate import QuantContext
 from repro_torch.quant.fakequant import QuantizerParams, apply_qdq, fp_qdq
 from repro_torch.quant.formats import FPFormat
+from repro_torch.serving import (DiffusionServingEngine, VirtualClock,
+                                 WeightBank, absmax_talora_setup)
+from repro_torch.serving.obs import Observability
+from repro_torch.serving.replay import (dyadic_unet_weights, eps_free_x0,
+                                        replay, replay_mismatches, x0_error)
+from repro_torch.serving.traffic import load_trace
 from repro_torch.serving.weight_bank import _tree_to
 
 S, U = 0, 1
@@ -506,3 +522,106 @@ def test_io_sites_on_card_take_the_kernel_only(cuda):
     assert dict(ops.ROUTES) == {("conv2d", "cuda"): 2}
     assert k1.qdq_conv2d_cuda.launches == io_before + 2
     assert k1.msfp_qdq_2d_cuda.launches == k1_before
+
+
+# ---------------------------------------------------------------------------
+# The golden replay, card vs CPU, and the kernel profiler on the card.
+# ---------------------------------------------------------------------------
+
+GOLDEN = str(pathlib.Path(__file__).resolve().parent / "data"
+             / "golden_trace.jsonl")
+# x0's limit as chip_smoke.py:REPLAY_X0_LIMIT (relative to the model's part
+# of x0, serving/replay.py:x0_error)
+REPLAY_X0_LIMIT = (5e-2, 0.4)
+
+
+def _tiny_golden_setup(dyadic):
+    """tiny_ddim(8) as the launcher builds it from --seed 0, on the CPU,
+    optionally on power-of-two weight scales; the hubs' B is 0, so the
+    bank's merge keeps them."""
+    cfg = tiny_ddim(8)
+    gen = torch.Generator().manual_seed(0)
+    params = unet_init(gen, cfg, "cpu")
+    if dyadic:
+        params = dyadic_unet_weights(params, {
+            k: v for k, v in flatten_paths(params).items()
+            if k.endswith("/w") and v.ndim >= 2})
+    plan, hubs, router = absmax_talora_setup(params, TALORA_CFG, gen,
+                                             io_sites=io_sites(params))
+    assert not any(bool(h["B"].any()) for h in hubs.values())
+    return cfg, params, plan, hubs, router
+
+
+def _tiny_golden_replay(setup, dev, obs=None):
+    cfg, params, plan, hubs, router = setup
+    bank = WeightBank(params, plan, hubs, router, TALORA_CFG, 100,
+                      device=dev)
+    eng = DiffusionServingEngine(
+        cfg, make_schedule("linear", 100), bank,
+        act_qps={"*": QuantizerParams(0, 2, 1, 4,
+                                      torch.tensor(6.0, device=dev))},
+        max_batch=2, clock=VirtualClock(), device=dev, obs=obs)
+    return replay(eng, load_trace(GOLDEN)[0])
+
+
+def _within(d, limit):
+    return d["rel_frobenius"] <= limit[0] and d["frac_off"] <= limit[1]
+
+
+@pytest.mark.gpu
+def test_golden_replay_on_card_matches_cpu(cuda, monkeypatch):
+    """tiny_ddim(8): the tick log, outcomes, bank counters and x_T equal
+    card vs CPU on both weight sets; on power-of-two scales x0 within
+    REPLAY_X0_LIMIT, and K2/K3 snapping bf16-rounded acts breaks it."""
+    reqs = load_trace(GOLDEN)[0]
+    base = eps_free_x0(reqs, make_schedule("linear", 100), (1, 8, 8, 3))
+    for dyadic in (True, False):
+        setup = _tiny_golden_setup(dyadic)
+        card = _tiny_golden_replay(setup, cuda)
+        host = _tiny_golden_replay(setup, torch.device("cpu"))
+        assert replay_mismatches(card, host) == []
+        assert len(card["ticks"]) > 0 and card["bank"]["builds"] > 0
+        if not dyadic:
+            continue
+        assert _within(x0_error(card["x0"], host["x0"], base),
+                       REPLAY_X0_LIMIT)
+        for mod, name in ((k2, "w4_matmul_2d_cuda"),
+                          (k3, "w4a4_conv2d_implicit_cuda")):
+            f = getattr(mod, name)
+
+            def bf16_acts(x, *a, f=f, **kw):
+                return f(x.bfloat16().float(), *a, **kw)
+            bf16_acts.launches = f.launches
+            monkeypatch.setattr(mod, name, bf16_acts)
+        ctl = _tiny_golden_replay(setup, cuda)
+        monkeypatch.undo()
+        assert not _within(x0_error(ctl["x0"], host["x0"], base),
+                           REPLAY_X0_LIMIT)
+
+
+@pytest.mark.gpu
+def test_kernel_profiler_times_the_kernels_on_card(cuda):
+    """The profiler on the card: its route counts equal ops.ROUTES and the
+    kernels' launch counters, and the CUDA events give K2 and K3 positive
+    device seconds, read when the counts are."""
+    ops.reset_routes()
+    before = {"w4a4_matmul:cuda": k2.w4_matmul_2d_cuda.launches,
+              "w4a4_conv2d:cuda:implicit":
+                  k3.w4a4_conv2d_implicit_cuda.launches,
+              "conv2d:cuda": k1.qdq_conv2d_cuda.launches}
+    obs = Observability()
+    with obs.kernel_profiler:
+        _tiny_golden_replay(_tiny_golden_setup(False), cuda, obs)
+    counts = obs.kernel_profiler.route_counts()
+    assert counts == {f"{op}:{r}": n for (op, r), n in ops.ROUTES.items()}
+    launched = {"w4a4_matmul:cuda": k2.w4_matmul_2d_cuda.launches,
+                "w4a4_conv2d:cuda:implicit":
+                    k3.w4a4_conv2d_implicit_cuda.launches,
+                "conv2d:cuda": k1.qdq_conv2d_cuda.launches}
+    snap = obs.metrics.snapshot()
+    for key, n in launched.items():
+        assert counts[key] == n - before[key] > 0
+        op, route = key.split(":", 1)
+        hist = f'kernel_call_seconds{{op="{op}",route="{route}"}}'
+        assert snap[f"{hist}_count"] == counts[key]
+        assert snap[f"{hist}_sum"] > 0

@@ -35,6 +35,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.launch import serve_diffusion
 from repro_torch.quant.fakequant import KIND_FP_SIGNED, QuantizerParams
 from repro_torch.serving import DiffusionServingEngine, VirtualClock, WeightBank
+from repro_torch.serving.replay import record_ticks
 from repro_torch.serving.traffic.trace import load_trace, submit_trace
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -105,16 +106,6 @@ def test_weight_bank_segments_and_packed_bytes_identical(rng):
     assert d["builds"] + d["build_failures"] == d["misses"] + d["prefetches"]
 
 
-def _record_ticks(engine, log):
-    run = engine._run_partitions
-
-    def wrapped(params, items):
-        log.append((engine.batcher.current_seg,
-                    tuple(it[0].req.rid for it in items)))
-        return run(params, items)
-    engine._run_partitions = wrapped
-
-
 def test_golden_replay_matches_reference_engine():
     """Same params and x_T: identical per-request n_evals / expiry and
     per-tick (segment, member rids); x0 within the forward tolerance."""
@@ -136,8 +127,7 @@ def test_golden_replay_matches_reference_engine():
         jeng = JEngine(cfg, j_sched("linear", T), jbank,
                        act_qps={"*": serve_act_qp_jax()}, max_batch=2,
                        clock=JClock())
-        jlog = []
-        _record_ticks(jeng, jlog)
+        jlog = record_ticks(jeng)
         j_submit(jeng, j_load(GOLDEN)[0])
         jres = jeng.run()
     finally:
@@ -155,8 +145,7 @@ def test_golden_replay_matches_reference_engine():
         act_qps={"*": QuantizerParams(KIND_FP_SIGNED, 2, 1, 4,
                                       torch.tensor(6.0))},
         max_batch=2, clock=VirtualClock(), device="cpu", noise_fn=noise)
-    tlog = []
-    _record_ticks(teng, tlog)
+    tlog = record_ticks(teng)
     submit_trace(teng, load_trace(GOLDEN)[0])
     tres = teng.run()
 
@@ -197,7 +186,8 @@ def test_launcher_serves_tiny_preset_on_cpu(capsys):
 def test_launcher_requests_mode_and_device_checks(capsys, monkeypatch):
     out = serve_diffusion.main([
         "--device", "cpu", "--preset", "tiny-ddim", "--image-size", "8",
-        "--requests", "3", "--steps", "2", "--max-batch", "4"])
+        "--requests", "3", "--steps", "2", "--steps-jitter", "0",
+        "--max-batch", "4"])
     assert out["summary"]["requests"] == 3 and out["evals"] == 6
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="not available"):
