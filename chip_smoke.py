@@ -66,9 +66,18 @@ Phases, each fatal on failure (exit code 1, no result line):
      decode step in those runs and launches x ms, and per path the sum of
      launches x ms beside the K2/K3 device totals of the phase 6 and 8
      profiles;
-  10. a ``kernels`` JSON line (each kernel's launches in all and per path:
-     per forward for ddim-cifar10, per decode step for smollm-135m), the
-     card line, and the result line.
+  10. the paper's pipeline on ddim-cifar10 at full width (pipeline_phase:
+     calibration, the MSFP search on the card held against the CPU's on a
+     named subset, TALoRA + DFA train steps with K1 and qdq_conv2d
+     launching under autograd, one step profiled, one step card vs CPU
+     between its control faults, beside readings with TF32 in the
+     backward and with K1 and qdq_conv2d on their plain versions,
+     eval_denoising_gap, the kernels at the
+     plan's formats), then the 8 x 10 replay on --plan absmax and --plan
+     search in turns, each through serve()'s checks;
+  11. a ``kernels`` JSON line (each kernel's launches in all and per path:
+     per forward for ddim-cifar10, per decode step for smollm-135m, per
+     train step for the pipeline), the card line, and the result line.
 Needs one card; exits non-zero without one or without the repo around it.
 """
 from __future__ import annotations
@@ -497,11 +506,12 @@ def serve(name: str, argv: list[str]) -> dict:
             "unit": "forward", "shapes": shapes}
 
 
-# the CUDA wrappers that phase 6 and the launch tally can replace: kernel
-# name -> (module under repro_torch.kernels, wrapper's name there)
+# the CUDA wrappers that phases 6 and 10 and the launch tally can replace:
+# kernel name -> (module under repro_torch.kernels, wrapper's name there)
 WRAPPERS = {"w4a4_matmul": ("w4_matmul", "w4_matmul_2d_cuda"),
             "w4a4_conv2d": ("conv", "w4a4_conv2d_implicit_cuda"),
-            "qdq_conv2d": ("msfp_quant", "qdq_conv2d_cuda")}
+            "qdq_conv2d": ("msfp_quant", "qdq_conv2d_cuda"),
+            "msfp_qdq": ("msfp_quant", "msfp_qdq_2d_cuda")}
 
 
 @contextlib.contextmanager
@@ -575,16 +585,17 @@ def check_shapes(name: str, shapes: collections.Counter, counts: dict):
 
 
 def plain_kernels(names=("w4a4_matmul", "w4a4_conv2d", "qdq_conv2d")):
-    """The named kernels (K2, K3 and the io sites' qdq_conv2d by default)
-    dispatch CUDA tensors to their plain versions (on the card) while the
-    context is open."""
+    """The named kernels (K2, K3 and the io sites' qdq_conv2d by default;
+    K1 as ``msfp_qdq``) dispatch CUDA tensors to their plain versions (on
+    the card) while the context is open."""
     from repro_torch.kernels import conv as k3
     from repro_torch.kernels import msfp_quant as k1
     from repro_torch.kernels import w4_matmul as k2
     plain = {"w4a4_matmul": lambda *a, **kw: k2.w4_matmul_2d_plain(*a, **kw),
              "w4a4_conv2d":
                  lambda *a, **kw: k3.w4a4_conv2d_implicit_plain(*a, **kw),
-             "qdq_conv2d": lambda *a, **kw: k1.qdq_conv2d_plain(*a, **kw)}
+             "qdq_conv2d": lambda *a, **kw: k1.qdq_conv2d_plain(*a, **kw),
+             "msfp_qdq": lambda *a, **kw: k1.msfp_qdq_2d_plain(*a, **kw)}
     return wrapped_kernels({k: (lambda _, f=plain[k]: f) for k in names})
 
 
@@ -1627,9 +1638,536 @@ def path_shapes(dev, rows: dict, runs: dict, profiled: dict) -> dict:
     return sums
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the paper's pipeline at full width, and --plan search served.
+# ---------------------------------------------------------------------------
+
+PIPE_TRAIN_STEPS = 3   # DFA train steps at batch B, each loss printed
+PIPE_SUBSET = 8        # sites a class whose search is held card vs CPU
+PIPE_GAP_STEPS = 3     # eval_denoising_gap's trajectory
+# One train step card vs CPU from the same state on power-of-two scales
+# (msfp.pow2_plan): (limit on every finetune.step_errors reading, the
+# control faults that must break it). With the act snaps on, the ulps of
+# the torch ops between the exact products (GroupNorm, SiLU, softmax)
+# differ by device and flip act-grid ties, as on phase 6's forward: the
+# loss moves by 8e-4 and the worst leaf's gradient by 0.108 (an H100 80GB
+# HBM3 at 700 W), TF32 in the backward drowns under that (0.1085), an STE
+# without its clip mask reads 0.555 and the 'plain' loss 40: the limit sits
+# between. K1 and qdq_conv2d on their plain versions on the card read the
+# same 0.108, so the kernels add nothing to it. With the act sites off (the
+# fake-quant weights alone) nothing ties, and the limit sits between the
+# f32 sum orders and TF32.
+CARD_STEP_LIMITS = {"acts on": (0.25, ("plain loss",
+                                       "STE without its clip mask")),
+                    "acts off": (1e-4, ("plain loss",
+                                        "TF32 in the backward"))}
+
+
+def _clock() -> float:
+    import torch
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+@contextlib.contextmanager
+def counts_after_build():
+    """The launcher's build (under --plan search the pipeline's FP forwards,
+    which run qdq_conv2d on dense weights) is not the serve path: every
+    kernel's launch count is set to 0 when the build returns, so serve()'s
+    counts are the serve run's (the launcher resets its routes itself)."""
+    from repro_torch.launch import serve_diffusion
+    build = serve_diffusion.build_quantized
+
+    def counted(*a, **kw):
+        out = build(*a, **kw)
+        for fn in kernel_fns().values():
+            fn.launches = 0
+        return out
+    serve_diffusion.build_quantized = counted
+    try:
+        yield
+    finally:
+        serve_diffusion.build_quantized = build
+
+
+def plan_serve_runs(trace: str) -> dict:
+    """Phase 10: the 8 x 10 replay served on the abs-max plan and on the
+    searched plan (--plan search: the pipeline, then the bank on the
+    searched formats) in turns, absmax, search, absmax, search: each run
+    through serve()'s checks (every kernel of the path launched, K2/K3 at
+    every packed site, no off-kernel route, two qdq_conv2d a forward, no
+    K1) and its evals/s."""
+    out = {"absmax": [], "search": []}
+    runs = {}
+    for plan in ("absmax", "search", "absmax", "search"):
+        with counts_after_build():
+            run = serve(f"8 requests x 10 steps, --plan {plan}", [
+                "--preset", "ddim-cifar10", "--trace", trace,
+                "--max-batch", "8", "--device", "cuda", "--plan", plan])
+        out[plan].append(run["out"]["evals"] / run["out"]["wall_s"])
+        runs[plan] = run
+    print(f"--plan search vs --plan absmax, 8 x 10 evals/s in turns "
+          f"(absmax, search, absmax, search): {out['absmax'][0]:.2f}, "
+          f"{out['search'][0]:.2f}, {out['absmax'][1]:.2f}, "
+          f"{out['search'][1]:.2f}", flush=True)
+    return {"evals_per_s": out, "search_run": runs["search"]}
+
+
+def _cpu_mse_at(samples, qp) -> float:
+    """The CPU's MSE of a site's samples at a (card's) pick."""
+    import torch
+    from repro_torch.quant import search
+    from repro_torch.quant.fakequant import apply_qdq
+    xs = search._subsample(samples, device="cpu")
+    q = apply_qdq(xs, qp.to("cpu"), form="compiled")
+    return float(((xs - q) ** 2).mean())
+
+
+def held_subset(plan, weights, db, io) -> dict:
+    """The card's searched plan against the CPU's on the same DB for a
+    named subset: PIPE_SUBSET weight, NAL and AAL sites each, evenly spaced
+    in name order, and every io site (the model has 4). Each pick equal,
+    or a near-tie: the CPU's MSEs at the two picks within the f32 sum-order
+    bound of the mean (search.tie_bound)."""
+    from repro_torch.core import msfp
+    from repro_torch.quant import search
+    from repro_torch.quant.calibrate import CalibrationDB
+
+    def spaced(names):
+        names = sorted(names)
+        step = max(1, len(names) // PIPE_SUBSET)
+        return names[::step][:PIPE_SUBSET]
+
+    w_names = [k for k in plan.weight_sites() if k not in io]
+    acts = [k for k in plan.act_sites() if k not in io]
+    classes = {"weight": spaced(w_names),
+               "NAL act": spaced([k for k in acts
+                                  if not plan.sites[k].is_aal]),
+               "AAL act": spaced([k for k in acts if plan.sites[k].is_aal]),
+               "io": sorted(k for k in plan.sites if k in io)}
+    names = {k for v in classes.values() for k in v}
+    sub_db = CalibrationDB(db.sample_cap)
+    sub_db.sites = {k: s for k, s in db.sites.items() if k in names}
+    t0 = time.perf_counter()
+    host = msfp.build_mixed_plan(
+        {k: w.cpu() for k, w in weights.items() if k in names}, sub_db,
+        io_sites=io, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    near = []
+    for k in sorted(names):
+        c, h = plan.sites[k], host.sites[k]
+        pick = lambda s: (s.qp.kind, s.qp.exp_bits, s.qp.man_bits,  # noqa
+                          s.qp.bits, float(s.qp.maxval),
+                          float(s.qp.zero_point), s.is_aal)
+        if pick(c) == pick(h):
+            continue
+        samples = weights[k] if c.is_weight else db.sites[k].samples
+        a, b = _cpu_mse_at(samples, h.qp), _cpu_mse_at(samples, c.qp)
+        n = min(samples.numel() if hasattr(samples, "numel")
+                else samples.size, 1 << 16)
+        if (c.is_aal != h.is_aal
+                or abs(a - b) > search.tie_bound(n) * max(a, b)):
+            fail(f"searched plan, site {k}: card picks {pick(c)}, CPU "
+                 f"{pick(h)}; CPU MSEs {a!r} vs {b!r}, beyond a near-tie")
+        near.append(k)
+    print(f"searched plan card vs CPU on {len(names)} sites "
+          f"({ {c: len(v) for c, v in classes.items()} }; CPU search "
+          f"{cpu_s:.1f} s): {len(names) - len(near)} picks equal, "
+          f"{len(near)} near-ties {near}; sites {classes}", flush=True)
+    return {"sites": classes, "near_ties": near, "cpu_search_s": cpu_s}
+
+
+def plan_format_checks(dev, plan, io) -> dict:
+    """K1, qdq_conv2d, K2 and K3 against their plain versions at every
+    (kind, exp, man) the searched plan holds: K1 bit-exact at (B*1024, 128)
+    for every act format, in the serve form and the STE's folded one;
+    qdq_conv2d at conv_in and conv_out for the io sites' act formats; K2
+    at (2048,256)x(256,256) and K3 3x3 s1 16x16 256->256 for every 4-bit
+    act format against every 4-bit weight format (each at a site's searched
+    maxval and zp), by check_close."""
+    import torch
+    from repro_torch.core.qmodule import pack_weight
+    from repro_torch.kernels import conv as k3
+    from repro_torch.kernels import msfp_quant as k1
+    from repro_torch.kernels import w4_matmul as k2
+    from repro_torch.quant.fakequant import (KIND_FP_SIGNED, QuantizerParams,
+                                             apply_qdq)
+    fmt = lambda qp: (qp.kind, qp.exp_bits, qp.man_bits, qp.bits)  # noqa
+    acts, w4 = {}, {}
+    for k, s in plan.sites.items():
+        (w4 if s.is_weight else acts).setdefault(fmt(s.qp), (k, s.qp))
+    w4 = {f: v for f, v in w4.items() if f[3] == 4}
+    randn = _gen_randn(dev, 17)
+    x = randn(B * 1024, 128, scale=2.0)
+    for f, (_, qp) in acts.items():
+        for folded in (False, True):   # the serve form, the STE's
+            kw = dict(exp_bits=qp.exp_bits, man_bits=qp.man_bits,
+                      signed=qp.kind == KIND_FP_SIGNED, folded=folded)
+            got = k1.msfp_qdq_2d_cuda(x, qp.maxval, qp.zero_point, **kw)
+            want = k1.msfp_qdq_2d_plain(x, qp.maxval, qp.zero_point, **kw)
+            if not torch.equal(got, want):
+                fail(f"msfp_qdq at the plan's act format {f} (folded "
+                     f"{folded}): not bit-exact")
+    xio = randn(B, 32, 32, 3, scale=2.0)
+    for site, (cin, cout) in (("conv_in", (3, 128)), ("conv_out", (128, 3))):
+        qp = plan.sites[site].qp
+        xi = xio if cin == 3 else randn(B, 32, 32, 128)
+        w = randn(3, 3, cin, cout, scale=(9 * cin) ** -0.5).to(torch.bfloat16)
+        bias = randn(cout, scale=0.1)
+        got = k1.qdq_conv2d_cuda(xi, w, qp, bias)
+        want = k1.qdq_conv2d_plain(xi, w, qp, bias)
+        mag = k3.conv2d_nhwc(apply_qdq(xi, qp).abs(), w.float().abs(),
+                             stride=(1, 1), padding="SAME")
+        check_close(f"qdq_conv2d {site} at the plan's {fmt(qp)}", got, want,
+                    mag, 9 * cin)
+    xm = randn(2048, 256)
+    xc = randn(B, 16, 16, 256)
+    wm = randn(256, 256, scale=256 ** -0.5)
+    wc = randn(3, 3, 256, 256, scale=(9 * 256) ** -0.5)
+    n = 0
+    for fw in w4:
+        for fa, (_, aq) in acts.items():
+            if fa[3] != 4:
+                continue
+            for w, xx in ((wm, xm), (wc, xc)):
+                wq = QuantizerParams(fw[0], fw[1], fw[2], 4,
+                                     w.abs().max().reshape(()))
+                pw = pack_weight(w, wq)
+                if w.ndim == 2:
+                    act = (aq.maxval, aq.zero_point, aq.exp_bits,
+                           aq.man_bits, aq.kind == KIND_FP_SIGNED)
+                    kw = dict(exp_bits=pw.exp_bits, man_bits=pw.man_bits,
+                              signed=pw.signed)
+                    args = (xx, pw.packed, pw.scale, pw.zero_point, act)
+                    got = k2.w4_matmul_2d_cuda(*args, **kw)
+                    want = k2.w4_matmul_2d_plain(*args, **kw)
+                    mag = apply_qdq(xx, aq).abs() @ abs_weight(pw)
+                    check_close(f"w4a4_matmul weight {fw} act {fa}", got,
+                                want, mag, 256)
+                else:
+                    kw = dict(stride=(1, 1), padding="SAME")
+                    got = k3.w4a4_conv2d_implicit_cuda(xx, pw, aq, **kw)
+                    want = k3.w4a4_conv2d_implicit_plain(xx, pw, aq, **kw)
+                    mag = k3.conv2d_nhwc(apply_qdq(xx, aq).abs(),
+                                         abs_weight(pw), **kw)
+                    check_close(f"w4a4_conv2d weight {fw} act {fa}", got,
+                                want, mag, 9 * 256)
+                n += 1
+    print(f"plan formats: act {sorted(acts)}, 4-bit weight {sorted(w4)}: K1 "
+          f"bit-exact at each act format (serve and folded forms), "
+          f"qdq_conv2d at both io formats, {n} K2/K3 checks within "
+          f"check_close", flush=True)
+    return {"act_formats": sorted(acts), "weight_formats": sorted(w4),
+            "k2_k3_checks": n}
+
+
+def conv_row(dev, hw: int, cin: int, cout: int, k: int) -> dict:
+    """qdq_conv2d at an inner conv shape the FP teacher and the fake-quant
+    student send it (B 8, f32 weight, a bias, acts off: quantize mode snaps
+    in the STE first): checked by check_close, timed beside the plain
+    version and F.conv2d alone (f32, TF32 off, on the input padded to NCHW
+    beforehand), the bound as io_conv_row's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.common.device import no_tf32
+    from repro_torch.kernels import conv as k3
+    from repro_torch.kernels import msfp_quant as k1
+    randn = _gen_randn(dev, hw * 31 + cin + cout * 7 + k)
+    x = randn(B, hw, hw, cin)
+    w = randn(k, k, cin, cout, scale=(k * k * cin) ** -0.5)
+    bias = randn(cout, scale=0.1)
+    label = f"{k}x{k} {hw}x{hw} {cin}->{cout} B{B}, f32 weight, bias, acts off"
+    got = k1.qdq_conv2d_cuda(x, w, None, bias)
+    want = k1.qdq_conv2d_plain(x, w, None, bias)
+    mag = k3.conv2d_nhwc(x.abs(), w.abs(), stride=(1, 1), padding="SAME")
+    err = check_close(f"qdq_conv2d {label}", got, want, mag, k * k * cin)
+    ms = cuda_ms(lambda: k1.qdq_conv2d_cuda(x, w, None, bias))
+    plain_ms = cuda_ms(lambda: k1.qdq_conv2d_plain(x, w, None, bias))
+    p = k // 2
+    xn = F.pad(x.permute(0, 3, 1, 2), (p, p, p, p)).contiguous()
+    wn = w.permute(3, 2, 0, 1).contiguous()
+    with no_tf32():
+        lib_ms = cuda_ms(lambda: F.conv2d(xn, wn))
+    m = B * hw * hw
+    b_ms, b_by = bound(0.0, 4 * x.numel() + 4 * w.numel() + 4 * cout
+                       + 4 * m * cout, f32_ops=2.0 * m * k * k * cin * cout)
+    return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                library="F.conv2d f32 (TF32 off) on the input padded to "
+                        "NCHW beforehand: the conv alone")
+
+
+@contextlib.contextmanager
+def recording_io_shapes():
+    """Yields a Counter of the (hw, cin, cout, k) of each qdq_conv2d launch
+    while the context is open (the wrapper's own count kept)."""
+    tally = collections.Counter()
+
+    def wrap(f):
+        def launch(x, w, *a, **kw):
+            y = f(x, w, *a, **kw)
+            f.launches = launch.launches
+            tally[(x.shape[1], w.shape[2], w.shape[3], w.shape[0])] += 1
+            return y
+        return launch
+    with wrapped_kernels({"qdq_conv2d": wrap}):
+        yield tally
+
+
+@contextlib.contextmanager
+def ste_without_mask():
+    """A control fault: the act STE passes the gradient everywhere (no clip
+    mask), while the context is open."""
+    from repro_torch.quant import fakequant
+    orig = fakequant._SteQdq.backward
+    fakequant._SteQdq.backward = staticmethod(lambda ctx, g: (g, None))
+    try:
+        yield
+    finally:
+        fakequant._SteQdq.backward = orig
+
+
+@contextlib.contextmanager
+def tf32_backward():
+    """A control fault: the train step runs with TF32 allowed; the
+    forward's convs and products set it off around themselves, so it
+    reaches the backward's convs and products only."""
+    from repro_torch.train import finetune
+    orig = finetune.no_tf32
+    finetune.no_tf32 = tf32_allowed
+    try:
+        yield
+    finally:
+        finetune.no_tf32 = orig
+
+
+def pipeline_phase(dev) -> dict:
+    """Phase 10: the paper's pipeline on ddim-cifar10 at full width (random
+    weights from seed 0, T 100): the calibration set at the reference's
+    defaults (32 samples, 20 steps, batch 8), calibrate_activations,
+    build_mixed_plan on the card (held against the CPU's on a named subset,
+    held_subset), quantize_weight_tree, TALoRA attached (the paper's
+    TALoRAConfig: h 2, rank 32), PIPE_TRAIN_STEPS DFA train steps at batch
+    B along the teacher's trajectory (each loss printed; K1 and qdq_conv2d
+    launches per step, no off-kernel oracle route), one step profiled
+    (device busy, idle share, launches, peak memory), one step on
+    power-of-two scales card vs CPU with the act sites on and off, each
+    within its CARD_STEP_LIMITS between the control faults that must break
+    it ('plain' loss, an STE without its clip mask, TF32 in the backward),
+    beside two readings (TF32 in the backward with acts on, where act-grid
+    ties drown it; K1 and qdq_conv2d on their plain versions on the card,
+    the witness that the kernels add nothing to the tie flips),
+    eval_denoising_gap at PIPE_GAP_STEPS
+    steps, the kernels at the plan's formats (plan_format_checks) and
+    qdq_conv2d at each inner shape a train step sends it (conv_row)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.common.tree import flatten_paths, unflatten_paths
+    from repro_torch.configs.diffusion_presets import DIFFUSION_PRESETS
+    from repro_torch.core import msfp, talora
+    from repro_torch.diffusion import pipeline as pipe
+    from repro_torch.diffusion.samplers import ddim_step
+    from repro_torch.diffusion.schedule import make_schedule, sample_timesteps
+    from repro_torch.kernels import ops
+    from repro_torch.nn.unet import io_sites, unet_init
+    from repro_torch.optim.adam import adam_init
+    from repro_torch.train import finetune as ftm
+    print("--- paper pipeline: ddim-cifar10 at full width", flush=True)
+    t_phase = _clock()
+    cfg = DIFFUSION_PRESETS["ddim-cifar10"]()
+    sched = make_schedule("linear", 100)
+    params = unet_init(torch.Generator().manual_seed(0), cfg, dev)
+    io = io_sites(params)
+    t0 = _clock()
+    calib = pipe.build_calibration_set(params, cfg, sched, seed=0)
+    t1 = _clock()
+    db = pipe.calibrate_activations(params, cfg, calib)
+    t2 = _clock()
+    weights = {k: v for k, v in flatten_paths(params).items()
+               if k.endswith("/w")}
+    plan = msfp.build_mixed_plan(weights, db, io_sites=io, device=dev)
+    t3 = _clock()
+    summary = plan.summary()
+    formats = collections.Counter(
+        f"{'w' if s.is_weight else 'a'}:{s.qp.fmt.name}"
+        for s in plan.sites.values())
+    n_rec = len(db.sites) * min(8, len(calib))
+    times = {"calibration_set_s": t1 - t0, "calibrate_s": t2 - t1,
+             "calibrate_records": n_rec, "search_s": t3 - t2}
+    print(f"pipeline: calibration set {len(calib)} states in {t1 - t0:.2f} "
+          f"s; calibrate_activations {t2 - t1:.2f} s ({n_rec} records, one "
+          f"device-to-host copy each); build_mixed_plan on the card "
+          f"{t3 - t2:.2f} s: {summary}, formats {dict(formats)}", flush=True)
+    subset = held_subset(plan, weights, db, io)
+
+    def bundle_for(p):
+        """The fake-quant tree under plan ``p``, the paper's TALoRA hubs
+        and router attached (seed 0)."""
+        flat = dict(flatten_paths(params))
+        flat.update(msfp.quantize_weight_tree(weights, p))
+        b = pipe.QuantizedDiffusion(cfg, sched, params, unflatten_paths(flat),
+                                    p)
+        return pipe.attach_talora(b, talora.TALoRAConfig(), seed=0)
+
+    bundle = bundle_for(plan)
+    ft = ftm.FinetuneConfig(batch=B)
+    tr = {"hubs": bundle.hubs, "router": bundle.router}
+    opt = adam_init(tr, ft.adam())
+    gammas = sched.gamma()
+    seq = sample_timesteps(sched.T, ft.steps_per_epoch)
+    x = torch.randn((B, 32, 32, 3),
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    losses, step_s = [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with recording_io_shapes() as io_shapes:
+        for i, t in enumerate(seq[:PIPE_TRAIN_STEPS]):
+            tb = torch.full((B,), float(t), device=dev)
+            g = torch.full((B,), float(gammas[int(t)]), device=dev)
+            s0 = _clock()
+            tr, opt, loss, m = ftm.train_step(bundle, ft, tr, opt, x, tb, g,
+                                              t_frac=float(t) / sched.T)
+            step_s.append(_clock() - s0)
+            losses.append(float(loss))
+            print(f"train step {i + 1} (t {int(t)}): DFA loss "
+                  f"{losses[-1]!r}, grad norm {float(m['grad_norm']):.4g}, "
+                  f"{step_s[-1]:.3f} s", flush=True)
+            x = ddim_step(sched, x, int(t), int(seq[i + 1]), m["eps_t"])
+    counts = launch_counts()
+    check_path("train steps", counts, ("msfp_qdq", "qdq_conv2d"),
+               {("matmul", "torch_f32"), ("conv2d", "torch_f32")})
+    routes = {f"{op}/{r}": n for (op, r), n in sorted(ops.ROUTES.items())}
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    per_step = {k: v / PIPE_TRAIN_STEPS for k, v in counts.items() if v}
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"train step losses not finite: {losses}")
+    print(f"train steps: {PIPE_TRAIN_STEPS} at batch {B}, launches per step "
+          f"{per_step}, routes {routes}, peak memory {peak_mib:.1f} MiB, "
+          f"qdq_conv2d shapes (hw, cin, cout, k) per step "
+          f"{ {k: v / PIPE_TRAIN_STEPS for k, v in io_shapes.items()} }",
+          flush=True)
+    train_run = {"counts": counts, "units": PIPE_TRAIN_STEPS,
+                 "unit": "train step"}
+
+    # one step profiled
+    tb = torch.full((B,), float(seq[PIPE_TRAIN_STEPS]), device=dev)
+    g = torch.full((B,), float(gammas[int(seq[PIPE_TRAIN_STEPS])]),
+                   device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s0 = time.perf_counter()
+        ftm.train_step(bundle, ft, tr, opt, x, tb, g)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - s0) * 1e3
+    busy_ms, top = device_time(prof)
+    per_kernel = kernel_device_ms(prof)
+    launches = kernel_launches(prof)
+    print(f"profile train step ddim-cifar10 B={B}: wall {wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}, {launches} CUDA kernel launches, "
+          f"K1 {per_kernel['msfp_qdq']:.3f} ms, qdq_conv2d "
+          f"{per_kernel['qdq_conv2d']:.3f} ms", flush=True)
+    for line in top:
+        print(line, flush=True)
+
+    # one step card vs CPU on power-of-two scales, acts on and acts off,
+    # each between its control faults (CARD_STEP_LIMITS)
+    pow2 = msfp.pow2_plan(plan)
+    xs = torch.randn((B, 32, 32, 3),
+                     generator=torch.Generator().manual_seed(2))
+    t_h = int(seq[2])
+
+    def one_step(b, d, f=ft):
+        tr0 = {"hubs": b.hubs, "router": b.router}
+        o0 = adam_init(tr0, f.adam())
+        tr1, o1, loss, m = ftm.train_step(
+            b, f, tr0, o0, xs.to(d), torch.full((B,), float(t_h), device=d),
+            torch.full((B,), float(gammas[t_h]), device=d),
+            t_frac=t_h / sched.T)
+        return dict(tr=tr1, opt=o1, loss=loss, grad_norm=m["grad_norm"],
+                    grads=m["grads"], before=tr0)
+
+    plain = ftm.FinetuneConfig(batch=B, loss_mode="plain")
+    readings, host_s = {}, {}
+    for acts, p in (("acts on", pow2), ("acts off", msfp.QuantPlan(
+            {k: v for k, v in pow2.sites.items() if v.is_weight},
+            pow2.bits_w, pow2.bits_a, pow2.mode))):
+        pb = bundle_for(p)
+        s0 = time.perf_counter()
+        host = one_step(pb.to("cpu"), torch.device("cpu"))
+        host_s[acts] = time.perf_counter() - s0
+        limit, controls = CARD_STEP_LIMITS[acts]
+        readings[acts] = {}
+        for name, ctl, f in (
+                ("sound", contextlib.nullcontext(), ft),
+                ("plain loss", contextlib.nullcontext(), plain),
+                ("STE without its clip mask", ste_without_mask(), ft),
+                ("TF32 in the backward", tf32_backward(), ft),
+                ("K1 and qdq_conv2d on their plain versions",
+                 plain_kernels(("msfp_qdq", "qdq_conv2d")), ft)):
+            with ctl:
+                card = one_step(pb, dev, f)
+            if name == "sound" and acts == "acts on":
+                sound = card
+            errs = ftm.step_errors(card, host, host["before"])
+            readings[acts][name] = errs
+            held = all(v <= limit for v in errs.values())
+            role = ("sound" if name == "sound" else
+                    "control" if name in controls else "reading")
+            print(f"train step card vs CPU, power-of-two scales, {acts}, "
+                  f"{name} ({role}): "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                  + f" ({'within' if held else 'beyond'} {limit})",
+                  flush=True)
+            if role != "reading" and held != (role == "sound"):
+                fail(f"train step card vs CPU, {acts}, {name}: "
+                     + ("beyond" if role == "sound" else "within")
+                     + f" the limit {limit}: {errs}")
+    gb = flatten_paths(sound["grads"])
+    zero_b = [k for k in gb if k.endswith("/B") and not bool(gb[k].any())]
+    if zero_b:
+        fail(f"train step on the card: hubs with a zero B gradient {zero_b}")
+    print(f"train step: every hub's B gradient nonzero on the card "
+          f"({sum(k.endswith('/B') for k in gb)} hubs); the CPU steps took "
+          f"{ {k: round(v, 1) for k, v in host_s.items()} } s", flush=True)
+
+    bundle.hubs, bundle.router = tr["hubs"], tr["router"]
+    gap = ftm.eval_denoising_gap(bundle, ft, steps=PIPE_GAP_STEPS, batch=B)
+    if not math.isfinite(gap["final_image_mse"]):
+        fail(f"eval_denoising_gap not finite: {gap}")
+    print(f"eval_denoising_gap ({PIPE_GAP_STEPS} steps, batch {B}): final "
+          f"image MSE {gap['final_image_mse']!r}, mean step gap "
+          f"{gap['mean_step_gap']!r}, mean eps MSE {gap['mean_eps_mse']!r}",
+          flush=True)
+
+    fmts = plan_format_checks(dev, plan, io)
+    rows = [conv_row(dev, hw, cin, cout, k)
+            for (hw, cin, cout, k) in sorted(io_shapes)
+            if cin > 3 and cout > 3]
+    for r in rows:
+        print(f"qdq_conv2d at the teacher's {r['shape']}: {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
+              f"bound {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    wall = _clock() - t_phase
+    print(f"pipeline phase wall {wall:.1f} s", flush=True)
+    return {"times": times, "plan": summary, "formats": dict(formats),
+            "subset": subset, "losses": losses, "step_s": step_s,
+            "per_step": per_step, "routes": routes, "peak_mib": peak_mib,
+            "profile": {"wall_ms": wall_ms, "busy_ms": busy_ms,
+                        "idle_share": 1 - busy_ms / wall_ms,
+                        "launches": launches, "kernel_ms": per_kernel},
+            "card_vs_cpu": readings, "gap": {k: gap[k] for k in (
+                "final_image_mse", "mean_step_gap", "mean_eps_mse")},
+            "formats_checked": fmts, "io_rows": rows, "wall_s": wall,
+            "train_run": train_run}
+
+
 # a kernel's instances in a profile: K2/K3 carry their operand loader's
-# name (split-K reduction included), the kv4 kernels their own
-KERNEL_KEYS = {"w4a4_matmul": "DenseA", "w4a4_conv2d": "ConvA",
+# name (split-K reduction included; K3's as the template argument
+# "ConvA<", since qdq_conv2d's kernel takes a "ConvArgs"), the kv4
+# kernels their own
+KERNEL_KEYS = {"w4a4_matmul": "DenseA", "w4a4_conv2d": "ConvA<",
                "qdq_conv2d": "qdq_conv2d_kernel",
                "msfp_qdq": "msfp_qdq_kernel",
                "kv4_store": "kv4_store_kernel",
@@ -1721,15 +2259,20 @@ def main() -> None:
     scenario = scenario_run(tmp)
     replayed = replay_checks(dev, golden["out"]["digest"])
     overhead = obs_overhead(trace8, tmp)
-    tmp_dir.cleanup()
     fwd = forward_checks(dev)
     lm_serve = serve_lm()
     lm = lm_checks(dev)
-    # each path's own launches, per forward (diffusion) or per decode step
-    # (LM: prompt steps and generated steps alike)
+    pipeline = pipeline_phase(dev)
+    plan_runs = plan_serve_runs(trace8)
+    tmp_dir.cleanup()
+    rows["qdq_conv2d"].extend(pipeline["io_rows"])
+    # each path's own launches, per forward (diffusion), per decode step
+    # (LM: prompt steps and generated steps alike) or per train step
     paths = {"ddim-cifar10 golden trace": golden, "ddim-cifar10 8x10": wall,
              "ddim-cifar10 deadline_mix slo": scenario,
-             "smollm-135m serve": lm_serve}
+             "smollm-135m serve": lm_serve,
+             "ddim-cifar10 8x10 --plan search": plan_runs["search_run"],
+             "ddim-cifar10 train step": pipeline["train_run"]}
     by_path = {k: {name: {"launches": run["counts"][k],
                           f"per_{run['unit'].replace(' ', '_')}":
                               run["counts"][k] / run["units"]}
@@ -1786,6 +2329,9 @@ def main() -> None:
                                 "golden_replay": replayed,
                                 "obs_overhead_evals_per_s": overhead},
                       "forward": fwd, "launches_x_ms": path_sums,
+                      "pipeline": {k: v for k, v in pipeline.items()
+                                   if k not in ("train_run", "io_rows")},
+                      "plan_evals_per_s": plan_runs["evals_per_s"],
                       "lm": {"tok_s": lm_serve["tok_s"],
                              "peak_mib": lm_serve["peak_mib"],
                              "launches_per_step":

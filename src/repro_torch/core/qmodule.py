@@ -16,7 +16,8 @@ from math import prod
 
 import torch
 
-from repro_torch.quant.fakequant import QuantizerParams, _f32, fma, grid_scale
+from repro_torch.quant.fakequant import (QuantizerParams, _f32, fma,
+                                         grid_scale, true_div)
 from repro_torch.quant.formats import (FPFormat, octave, pow2,
                                        snap_to_base_grid)
 
@@ -48,7 +49,7 @@ def encode_codes(w: torch.Tensor, fmt: FPFormat, maxval, zero_point=0.0
     """Arithmetic nearest-code encode (uint8 codes). Runs eagerly in the
     reference, so ``maxval / base_max`` is a true division here."""
     w = w.to(torch.float32)
-    scale = _f32(maxval, w.device) / fmt.base_max
+    scale = true_div(_f32(maxval, w.device), fmt.base_max)
     inv = 1.0 / torch.clamp_min(scale, 1e-30)
     if fmt.signed:
         y = torch.abs(w) * inv

@@ -1,12 +1,13 @@
-"""TALoRA hub + router (paper §4.2); port of the serving part of
-``repro.core.talora``.
+"""TALoRA: timestep-aware LoRA hub + learnable router (paper §4.2); port
+of ``repro.core.talora``.
 
 Each quantized layer carries a hub of ``h`` LoRA adapters; one router maps
-the sinusoidal timestep embedding to per-(layer, slot) logits and an argmax
-picks one adapter per layer per timestep. Serving folds the selected
-adapters into the weights per routing segment (``merge_into_tree``).
-``lora_apply`` and the STE training surface belong to the paper-pipeline
-slice.
+the sinusoidal timestep embedding to per-(layer, slot) logits, and a
+straight-through argmax (``ste_one_hot``) turns those into a hard one-of-h
+selection, so one adapter is active per layer per timestep while the
+router still gets the softmax's gradient. The fine-tune folds the selected
+adapters into the weights (``merge_into_tree``, differentiable in the hubs
+and the selection); serving does the same per routing segment.
 """
 from __future__ import annotations
 
@@ -64,6 +65,64 @@ def router_logits(router: dict, t: torch.Tensor, n_layers: int,
     return out.reshape(*t.shape, n_layers, cfg.hub_size)
 
 
+def ste_one_hot(logits: torch.Tensor) -> torch.Tensor:
+    """Hard one-hot over the last axis; softmax gradient (STE)."""
+    soft = torch.softmax(logits, dim=-1)
+    hard = torch.nn.functional.one_hot(torch.argmax(logits, dim=-1),
+                                       logits.shape[-1]).to(soft.dtype)
+    return soft + (hard - soft).detach()
+
+
+def route(router: dict, t: torch.Tensor, layer_names: list[str],
+          cfg: TALoRAConfig) -> dict[str, torch.Tensor]:
+    """Per-layer hard selection weights (h,) for a scalar timestep t."""
+    t = torch.as_tensor(t, dtype=torch.float32, device=router["w1"].device)
+    sel = ste_one_hot(router_logits(router, t, len(layer_names), cfg))
+    return {name: sel[i] for i, name in enumerate(layer_names)}
+
+
+def _selected(hub: dict, sel: torch.Tensor):
+    """(A_sel, B_sel): the hub contracted with the (h,) selection, which
+    keeps the router differentiable while one adapter's math runs."""
+    return (torch.einsum("h,hir->ir", sel, hub["A"]),
+            torch.einsum("h,hro->ro", sel, hub["B"]))
+
+
+def lora_delta(x: torch.Tensor, hub: dict, sel: torch.Tensor,
+               cfg: TALoRAConfig) -> torch.Tensor:
+    """Selected adapter's contribution: (x @ A_sel) @ B_sel * alpha/r."""
+    a_sel, b_sel = _selected(hub, sel)
+    return ((x @ a_sel) @ b_sel) * (cfg.alpha / cfg.rank)
+
+
+def lora_apply(x: torch.Tensor, w_q: torch.Tensor, hub: dict | None,
+               sel: torch.Tensor | None, cfg: TALoRAConfig) -> torch.Tensor:
+    """y = x @ W_quantized + LoRA_sel(x)."""
+    y = x @ w_q
+    if hub is not None and sel is not None:
+        y = y + lora_delta(x, hub, sel, cfg)
+    return y
+
+
+def merged_weight(w_q: torch.Tensor, hub: dict, sel: torch.Tensor,
+                  cfg: TALoRAConfig) -> torch.Tensor:
+    """W_q + A_sel B_sel * alpha/r: the adapter folded for serving."""
+    a_sel, b_sel = _selected(hub, sel)
+    return w_q + (a_sel @ b_sel) * (cfg.alpha / cfg.rank)
+
+
+def allocation_histogram(router: dict, timesteps, layer_names: list[str],
+                         cfg: TALoRAConfig) -> torch.Tensor:
+    """(T, h) fraction of layers routed to each hub slot per timestep (the
+    paper's Fig. 7/9 allocation plots)."""
+    ts = torch.as_tensor(timesteps, dtype=torch.float32,
+                         device=router["w1"].device)
+    logits = router_logits(router, ts, len(layer_names), cfg)
+    hard = torch.nn.functional.one_hot(torch.argmax(logits, dim=-1),
+                                       cfg.hub_size).to(torch.float32)
+    return hard.mean(dim=-2)
+
+
 def routing_signatures(router: dict, timesteps, layer_names: list[str],
                        cfg: TALoRAConfig) -> torch.Tensor:
     """(T, n_layers) int32 hard slot selection per timestep.
@@ -92,15 +151,14 @@ def lora_target_dims_from_weights(weights: dict, cfg: TALoRAConfig | None = None
 
 def merge_into_tree(params: dict, hubs: dict[str, dict],
                     sels: dict[str, torch.Tensor], cfg: TALoRAConfig) -> dict:
-    """Fold each site's selected adapter into its weight:
-    w_eff = w + (A_sel @ B_sel).reshape(w.shape) * alpha/r."""
+    """Fold each site's selected adapter into its (frozen) weight:
+    w_eff = w + (A_sel @ B_sel).reshape(w.shape) * alpha/r. Gradients
+    reach the hubs and the selection, never the base weight."""
     flat = flatten_paths(params)
     scale = cfg.alpha / cfg.rank
     for site, hub in hubs.items():
-        sel = sels[site]
         w = flat[site]
-        a_sel = torch.einsum("h,hir->ir", sel, hub["A"])
-        b_sel = torch.einsum("h,hro->ro", sel, hub["B"])
+        a_sel, b_sel = _selected(hub, sels[site])
         delta = (a_sel @ b_sel).reshape(w.shape) * scale
-        flat[site] = w + delta.to(w.dtype)
+        flat[site] = w.detach() + delta.to(w.dtype)
     return unflatten_paths(flat)

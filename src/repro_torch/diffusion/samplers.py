@@ -1,5 +1,9 @@
-"""Step-wise samplers: DDIM, PLMS and DPM-Solver-2; port of the step API of
+"""Samplers: DDIM, PLMS and DPM-Solver-2; port of
 ``repro.diffusion.samplers``.
+
+Two surfaces, as in the reference: the step-wise API below, and the loop
+samplers (``ddim_sample``, ``plms_sample``, ``dpm_solver2_sample``), thin
+drivers over the same machine that take ``eps_fn(x_t, t_batch) -> eps``.
 
 A ``SamplerState`` is an eps-request machine: ``sampler_needed_t`` names
 the timestep to evaluate next, ``state.eval_x`` the latent to evaluate at
@@ -16,6 +20,7 @@ By default it comes from a CPU ``torch.Generator`` seeded per request.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
@@ -178,3 +183,60 @@ def sampler_advance(st: SamplerState, eps) -> SamplerState:
 
 
 STEP_SAMPLERS = ("ddim", "plms", "dpm_solver2")
+
+
+# ---------------------------------------------------------------------------
+# Loop samplers: thin drivers over the step machine (same bits).
+# ---------------------------------------------------------------------------
+
+EpsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def _eps_batch(eps_fn: EpsFn, st: SamplerState, t: int) -> torch.Tensor:
+    tb = torch.full((st.x.shape[0],), float(t), dtype=torch.float32,
+                    device=st.x.device)
+    return eps_fn(st.eval_x, tb)
+
+
+def ddim_sample(eps_fn: EpsFn, sched: NoiseSchedule, shape, *, seed: int = 0,
+                steps: int = 50, eta: float = 0.0, collect_every: int = 0,
+                x_T: torch.Tensor | None = None, device="cpu"):
+    """Full DDIM sampling loop. Returns (x0, taps): taps are (t, x_t) pairs
+    (x_t a detached tensor on ``device``) every ``collect_every`` steps
+    when it is > 0 (Q-Diffusion calibration sets)."""
+    st = sampler_init("ddim", sched, shape, seed=seed, steps=steps, eta=eta,
+                      x_T=x_T, device=device)
+    taps = []
+    while not st.done:
+        t = sampler_needed_t(st)
+        eps = _eps_batch(eps_fn, st, t)
+        if collect_every and st.i % collect_every == 0:
+            taps.append((t, st.x.detach().clone()))
+        sampler_advance(st, eps)
+    return st.x, taps
+
+
+def plms_sample(eps_fn: EpsFn, sched: NoiseSchedule, shape, *, seed: int = 0,
+                steps: int = 50, x_T: torch.Tensor | None = None,
+                device="cpu"):
+    """Pseudo Linear Multi-Step (PLMS/PNDM) sampler, 4th-order AB corrector."""
+    st = sampler_init("plms", sched, shape, seed=seed, steps=steps, x_T=x_T,
+                      device=device)
+    while not st.done:
+        sampler_advance(st, _eps_batch(eps_fn, st, sampler_needed_t(st)))
+    return st.x
+
+
+def dpm_solver2_sample(eps_fn: EpsFn, sched: NoiseSchedule, shape, *,
+                       seed: int = 0, steps: int = 20,
+                       x_T: torch.Tensor | None = None, device="cpu"):
+    """DPM-Solver-2 (midpoint) in log-SNR time (Lu et al. 2022)."""
+    st = sampler_init("dpm_solver2", sched, shape, seed=seed, steps=steps,
+                      x_T=x_T, device=device)
+    while not st.done:
+        sampler_advance(st, _eps_batch(eps_fn, st, sampler_needed_t(st)))
+    return st.x
+
+
+SAMPLERS = {"ddim": ddim_sample, "plms": plms_sample,
+            "dpm_solver2": dpm_solver2_sample}

@@ -1,5 +1,5 @@
-"""Noise schedules; port of ``repro.diffusion.schedule`` (without the DFA
-``gamma()``, which belongs to the paper-pipeline slice).
+"""Noise schedules and the DFA denoising factor; port of
+``repro.diffusion.schedule``.
 
 The schedule is computed in float64 with numpy (as the reference does) and
 stored as f32 CPU tensors: the samplers read per-step scalars from it on
@@ -22,6 +22,11 @@ class NoiseSchedule:
     @property
     def T(self) -> int:
         return self.betas.shape[0]
+
+    def gamma(self) -> torch.Tensor:
+        """DFA denoising factor (paper Eq. 4) for every t, f32 on the CPU."""
+        from repro_torch.core.dfa import denoising_factor
+        return denoising_factor(self.alphas, self.alpha_bars)
 
 
 def make_schedule(kind: str = "linear", T: int = 1000, *,

@@ -46,7 +46,7 @@ P, I, LL, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # C entry points: name -> (library, argtypes); every one returns the
 # cudaError_t of its launch as an int.
 SIGNATURES = {
-    "msfp_qdq_launch": ("msfp_quant", [P, P, LL, P, P, I, I, I, I, P]),
+    "msfp_qdq_launch": ("msfp_quant", [P, P, LL, P, P, I, I, I, I, I, P]),
     "qdq_conv2d_launch": ("msfp_quant",
                           [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I,
                            I, I, P, P, I, I, I, I, I, P]),

@@ -68,6 +68,14 @@ struct ActQ {
     zp = *zp_p;
   }
 
+  // maxval / base_max as a true division in place of the reciprocal
+  // multiply: the fine-tune's act STE, whose plan parameters compiled XLA
+  // folds as constants (quant/fakequant.py, form "folded")
+  __device__ __forceinline__ void fold_scale(const float* maxval_p) {
+    scale = __fdiv_rn(*maxval_p, bmax);
+    inv = scale > 0.f ? __fdiv_rn(1.f, fmaxf(scale, 1e-30f)) : 0.f;
+  }
+
   // signed: sign(x) * (snap(|x| * inv) * scale)
   // unsigned: fma(snap(max((x - zp) * inv, 0)), scale, zp)
   __device__ __forceinline__ float operator()(float x) const {

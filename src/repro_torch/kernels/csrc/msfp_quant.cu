@@ -17,9 +17,10 @@ template <typename T>
 __global__ void msfp_qdq_kernel(const T* __restrict__ x, T* __restrict__ out,
                                 long long n, const float* maxval,
                                 const float* zp, int exp_bits, int man_bits,
-                                int is_signed) {
+                                int is_signed, int folded) {
   msfp::ActQ q;
   q.load(maxval, zp, exp_bits, man_bits, is_signed);
+  if (folded) q.fold_scale(maxval);
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
@@ -32,7 +33,7 @@ __global__ void msfp_qdq_kernel(const T* __restrict__ x, T* __restrict__ out,
 extern "C" int msfp_qdq_launch(const void* x, void* out, long long n,
                                const void* maxval, const void* zp,
                                int exp_bits, int man_bits, int is_signed,
-                               int dtype, void* stream) {
+                               int folded, int dtype, void* stream) {
   if (n <= 0) return 0;
   const int threads = 256;
   long long blocks = (n + threads - 1) / threads;
@@ -41,11 +42,11 @@ extern "C" int msfp_qdq_launch(const void* x, void* out, long long n,
   if (dtype == 0) {
     msfp_qdq_kernel<float><<<(int)blocks, threads, 0, s>>>(
         (const float*)x, (float*)out, n, (const float*)maxval,
-        (const float*)zp, exp_bits, man_bits, is_signed);
+        (const float*)zp, exp_bits, man_bits, is_signed, folded);
   } else if (dtype == 1) {
     msfp_qdq_kernel<__nv_bfloat16><<<(int)blocks, threads, 0, s>>>(
         (const __nv_bfloat16*)x, (__nv_bfloat16*)out, n, (const float*)maxval,
-        (const float*)zp, exp_bits, man_bits, is_signed);
+        (const float*)zp, exp_bits, man_bits, is_signed, folded);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -12,6 +12,12 @@ CUDA tensor to the kernel:
   in one launch (replaces K1 fused with the XLA conv at
   ``src/repro/nn/layers.py:106``); its plain version is the composition it
   replaces, K1's plain version, ``conv.conv2d_nhwc`` and the bias add.
+
+The kernels are forward only. Under autograd (the fine-tune's FP teacher
+and fake-quant student run their dense convs through ``qdq_conv2d``) the
+CUDA route goes through ``QdqConv2dFn``: the kernel forward, the conv's
+input, weight and bias gradients in plain torch (TF32 off), as the
+reference computes its backward outside Pallas too.
 """
 from __future__ import annotations
 
@@ -28,8 +34,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def msfp_qdq_2d_plain(x: torch.Tensor, maxval, zero_point, *, exp_bits: int,
-                      man_bits: int, signed: bool) -> torch.Tensor:
-    return fp_qdq(x, FPFormat(exp_bits, man_bits, signed), maxval, zero_point)
+                      man_bits: int, signed: bool, folded: bool = False
+                      ) -> torch.Tensor:
+    return fp_qdq(x, FPFormat(exp_bits, man_bits, signed), maxval, zero_point,
+                  form="folded" if folded else "compiled")
 
 
 def scalar_operand(v: torch.Tensor, like: torch.Tensor, what: str
@@ -54,14 +62,15 @@ def check_input(x: torch.Tensor, what: str) -> int:
 
 
 def msfp_qdq_2d_cuda(x: torch.Tensor, maxval, zero_point, *, exp_bits: int,
-                     man_bits: int, signed: bool) -> torch.Tensor:
+                     man_bits: int, signed: bool, folded: bool = False
+                     ) -> torch.Tensor:
     dtype = check_input(x, "msfp_qdq")
     mv = scalar_operand(maxval, x, "maxval")
     zp = scalar_operand(zero_point, x, "zero_point")
     out = torch.empty_like(x)
     rc = build.function("msfp_qdq_launch")(
         x.data_ptr(), out.data_ptr(), x.numel(), mv.data_ptr(), zp.data_ptr(),
-        exp_bits, man_bits, int(signed), dtype,
+        exp_bits, man_bits, int(signed), int(folded), dtype,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "msfp_qdq")
     msfp_qdq_2d_cuda.launches += 1
@@ -72,9 +81,13 @@ msfp_qdq_2d_cuda.launches = 0
 
 
 def msfp_qdq_2d(x: torch.Tensor, maxval, zero_point, *, exp_bits: int,
-                man_bits: int, signed: bool) -> torch.Tensor:
-    """Elementwise qdq of ``x`` (any shape) under a per-tensor quantizer."""
-    kw = dict(exp_bits=exp_bits, man_bits=man_bits, signed=signed)
+                man_bits: int, signed: bool, folded: bool = False
+                ) -> torch.Tensor:
+    """Elementwise qdq of ``x`` (any shape) under a per-tensor quantizer;
+    ``folded``: the scale as the true division ``maxval / base_max``
+    (``fakequant.FORMS``), for the fine-tune's STE."""
+    kw = dict(exp_bits=exp_bits, man_bits=man_bits, signed=signed,
+              folded=folded)
     if x.device.type == "cuda":
         return msfp_qdq_2d_cuda(x.contiguous(), maxval, zero_point, **kw)
     if x.device.type == "cpu":
@@ -82,10 +95,11 @@ def msfp_qdq_2d(x: torch.Tensor, maxval, zero_point, *, exp_bits: int,
     raise ValueError(f"msfp_qdq: no route for device {x.device}")
 
 
-def msfp_qdq(x: torch.Tensor, qp: QuantizerParams) -> torch.Tensor:
+def msfp_qdq(x: torch.Tensor, qp: QuantizerParams, folded: bool = False
+             ) -> torch.Tensor:
     return msfp_qdq_2d(x, qp.maxval, qp.zero_point, exp_bits=qp.exp_bits,
                        man_bits=qp.man_bits,
-                       signed=(qp.kind == KIND_FP_SIGNED))
+                       signed=(qp.kind == KIND_FP_SIGNED), folded=folded)
 
 
 # ---------------------------------------------------------------------------
@@ -230,15 +244,63 @@ def qdq_conv2d_cuda(x: torch.Tensor, w: torch.Tensor,
 qdq_conv2d_cuda.launches = 0
 
 
+class QdqConv2dFn(torch.autograd.Function):
+    """``qdq_conv2d_cuda`` with a backward: the conv's gradients in plain
+    torch. The act snap has no gradient of its own here (the fine-tune
+    snaps in ``ste_qdq`` first), so a grad-requiring call takes
+    ``act_qp=None`` only."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, padding):
+        from repro_torch.kernels.conv import conv_geometry
+        k = w.shape[0]
+        _, _, ctx.pads_h, ctx.pads_w = conv_geometry(x.shape, k, k, (1, 1),
+                                                     padding)
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = bias is not None
+        return qdq_conv2d_cuda(x, w, None, bias, padding=padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.common.device import no_tf32
+        x, w = ctx.saved_tensors
+        (ph0, ph1), (pw0, pw1) = ctx.pads_h, ctx.pads_w
+        _, h, wd, _ = x.shape
+        g = g.to(torch.float32).permute(0, 3, 1, 2)
+        w_oihw = w.to(torch.float32).permute(3, 2, 0, 1)
+        xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2),
+                                     (pw0, pw1, ph0, ph1))
+        gx = gw = gb = None
+        with no_tf32():
+            if ctx.needs_input_grad[0]:
+                gxp = torch.nn.grad.conv2d_input(xp.shape, w_oihw, g)
+                gx = gxp[:, :, ph0:ph0 + h, pw0:pw0 + wd].permute(0, 2, 3, 1)
+            if ctx.needs_input_grad[1]:
+                gw = torch.nn.grad.conv2d_weight(xp, w_oihw.shape, g)
+                gw = gw.permute(2, 3, 1, 0).to(w.dtype)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            gb = g.sum((0, 2, 3))
+        return gx, gw, gb, None
+
+
 def qdq_conv2d(x: torch.Tensor, w: torch.Tensor,
                act_qp: QuantizerParams | None, bias: torch.Tensor | None, *,
                padding="SAME") -> torch.Tensor:
     """y = conv(pad(snap(x)), w) + bias at stride 1: x (B, H, W, cin) f32
     NHWC, w (k, k, cin, cout) HWIO in f32 or bf16, act_qp a per-tensor FP
-    quantizer or None, bias (cout,) or None."""
+    quantizer or None, bias (cout,) or None. On the card a call that needs
+    gradients runs ``QdqConv2dFn``; on the CPU the plain version is
+    differentiable as it is."""
     if x.device.type == "cuda":
-        return qdq_conv2d_cuda(x.contiguous(), w.contiguous(), act_qp, bias,
-                               padding=padding)
+        x, w = x.contiguous(), w.contiguous()
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x, w, bias)):
+            if act_qp is not None:
+                raise NotImplementedError(
+                    "qdq_conv2d's backward takes act_qp=None only (snap "
+                    "the act with quant.fakequant.ste_qdq first)")
+            return QdqConv2dFn.apply(x, w, bias, padding)
+        return qdq_conv2d_cuda(x, w, act_qp, bias, padding=padding)
     if x.device.type == "cpu":
         return qdq_conv2d_plain(x, w, act_qp, bias, padding=padding)
     raise ValueError(f"qdq_conv2d: no route for device {x.device}")

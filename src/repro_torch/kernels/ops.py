@@ -71,12 +71,14 @@ def _kernel_label(x: torch.Tensor) -> str:
     return "cuda" if x.device.type == "cuda" else "plain"
 
 
-def msfp_quantize(x: torch.Tensor, qp: QuantizerParams) -> torch.Tensor:
-    """Fused fake-quant (serving path). The kernel takes per-tensor FP
+def msfp_quantize(x: torch.Tensor, qp: QuantizerParams,
+                  folded: bool = False) -> torch.Tensor:
+    """Fused fake-quant (serving path; ``folded``: the fine-tune's STE,
+    ``quant/fakequant.py:FORMS``). The kernel takes per-tensor FP
     parameters; INT-affine and per-channel maxvals take the oracle."""
     if qp.kind != KIND_INT_AFFINE and qp.maxval.numel() == 1:
         return _dispatch("msfp_quantize", _kernel_label(x),
-                         lambda: msfp_qdq(x, qp), x)
+                         lambda: msfp_qdq(x, qp, folded), x)
     return _dispatch("msfp_quantize", "ref",
                      lambda: _ref.ref_msfp_qdq(x, qp), x)
 

@@ -30,6 +30,14 @@ largest-group-wins scheduler for the slack-aware one. ``--save-trace
 out.jsonl`` captures whatever workload actually ran back into a
 replayable trace.
 
+``--plan absmax`` (the default) builds the calibration-free abs-max FP4
+plan; ``--plan search`` runs the paper's calibrate + MSE-search pipeline
+first (``diffusion.pipeline.quantize_diffusion``: 4 FP trajectories of 8
+x 20 steps, 8 calibration forwards, every site searched) and serves its
+searched 4-bit formats through the kernels. The pipeline's own dispatch
+routes print on a line of their own, and ``routes:`` counts the serve
+run's.
+
 Observability (``serving/obs``) switches on when any of ``--trace-out``
 (Perfetto-loadable span trace), ``--metrics-out`` (text exposition of the
 metrics registry) or ``--report-json`` (machine-readable run report:
@@ -53,12 +61,14 @@ from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import flatten_paths
 from repro_torch.configs.diffusion_presets import DIFFUSION_PRESETS, tiny_ddim
 from repro_torch.core import talora
+from repro_torch.diffusion.pipeline import quantize_diffusion
 from repro_torch.diffusion.schedule import make_schedule
 from repro_torch.kernels import ops
 from repro_torch.nn.unet import io_sites, unet_init
 from repro_torch.quant.fakequant import KIND_FP_SIGNED, QuantizerParams
 from repro_torch.serving import (DiffusionServingEngine, VirtualClock,
-                                 WeightBank, absmax_talora_setup)
+                                 WeightBank, absmax_talora_setup,
+                                 act_qps_from_plan)
 from repro_torch.serving.obs import NULL_OBS, Observability
 from repro_torch.serving.traffic import (MetricsCollector, Scenario,
                                          TraceWriter, get_scenario,
@@ -66,6 +76,26 @@ from repro_torch.serving.traffic import (MetricsCollector, Scenario,
 
 TALORA_CFG = talora.TALoRAConfig(hub_size=2, rank=4, t_emb_dim=32,
                                  router_hidden=16)
+
+
+def build_quantized(cfg, sched, gen: torch.Generator, *, plan_mode: str,
+                    talora_cfg, seed: int, device):
+    """(params, plan, hubs, router) for the weight bank: the random UNet
+    with the abs-max plan, or (``search``) the pipeline's fake-quantized
+    tree with its searched plan and fresh TALoRA hubs and router."""
+    params = unet_init(gen, cfg, device)
+    if plan_mode == "search":
+        bundle = quantize_diffusion(params, cfg, sched, seed=seed,
+                                    talora_cfg=talora_cfg)
+        return bundle.q_params, bundle.plan, bundle.hubs, bundle.router
+    plan, hubs, router = absmax_talora_setup(params, talora_cfg, gen,
+                                             io_sites=io_sites(params))
+    return params, plan, hubs, router
+
+
+def _routes_line() -> str:
+    return ", ".join(f"{op}/{route}={n}"
+                     for (op, route), n in sorted(ops.ROUTES.items()))
 
 
 def outcome_digest(results) -> str:
@@ -187,10 +217,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="LRU cap on cached segment weight-sets")
     ap.add_argument("--no-prefetch", action="store_true",
                     help="disable eager next-segment weight-bank builds")
-    ap.add_argument("--plan", default="absmax", choices=["absmax"],
-                    help="absmax: the calibration-free abs-max FP4 plan "
-                         "(the reference's 'search' plan comes with the "
-                         "port of the paper pipeline)")
+    ap.add_argument("--plan", default="absmax", choices=["absmax", "search"],
+                    help="absmax: the calibration-free abs-max FP4 plan; "
+                         "search: the paper's calibrate + MSFP search "
+                         "(diffusion.pipeline.quantize_diffusion) first, "
+                         "its 4-bit act sites fused into the kernels")
     ap.add_argument("--act-quant", default="fp4", choices=["off", "fp4"],
                     help="fp4 = fuse E2M1 act quant into packed matmuls")
     ap.add_argument("--act-maxval", type=float, default=6.0)
@@ -239,16 +270,23 @@ def main(argv=None) -> dict:
     gen = torch.Generator().manual_seed(args.seed)
 
     t0 = wall_clock()
-    params = unet_init(gen, cfg, device)
-    plan, hubs, router = absmax_talora_setup(params, TALORA_CFG, gen,
-                                             io_sites=io_sites(params))
+    params, plan, hubs, router = build_quantized(
+        cfg, sched, gen, plan_mode=args.plan, talora_cfg=TALORA_CFG,
+        seed=args.seed, device=device)
+    if args.plan == "search":
+        # the pipeline's FP forwards (dense f32 weights, as the reference's
+        # lax.conv): reported apart, so that ``routes:`` is the serve run's
+        print(f"pipeline routes: {_routes_line()}")
+        ops.reset_routes()
     bank = WeightBank(params, plan, hubs, router, TALORA_CFG, args.T,
                       max_cached=args.bank_cap, device=device)
-    act_qps = {}
+    act_qps = act_qps_from_plan(plan) if args.plan == "search" else {}
     if args.act_quant == "fp4":
-        act_qps["*"] = QuantizerParams(
+        act_qps.setdefault("*", QuantizerParams(
             KIND_FP_SIGNED, 2, 1, 4,
-            torch.tensor(args.act_maxval, device=device))
+            torch.tensor(args.act_maxval, device=device)))
+    else:
+        act_qps = {}
     clock = VirtualClock() if args.replay_clock == "virtual" else None
     obs = (Observability() if (args.trace_out or args.metrics_out
                                or args.report_json) else NULL_OBS)
@@ -337,9 +375,7 @@ def main(argv=None) -> dict:
                and flat_q[k].shape[-1] % 2 == 0 and k not in packed_sites]
     if missing:
         raise RuntimeError(f"conv sites fell back to bf16: {missing}")
-    routes = ", ".join(f"{op}/{route}={n}"
-                       for (op, route), n in sorted(ops.ROUTES.items()))
-    print(f"routes: {routes}")
+    print(f"routes: {_routes_line()}")
     digest = outcome_digest(results)
     print(f"outcome digest: {digest} "
           f"({len(results)} requests, {summary['expired']} expired)")

@@ -66,11 +66,11 @@ def quantize_lm_for_serving(params, bits: int = 4, *, searched: bool = False,
     slice, (G, 1, ..., 1), or per (slice, column), (G, 1, ..., N). The
     bytes, scales and their types are the reference's for bf16 and f32
     leaves (its type promotions are spelled out). ``searched=True`` (the
-    paper's MSE search) is the paper-pipeline slice, ROADMAP Queue A
-    item 10."""
+    LM weights through item 10's MSE search, ``quant/search.py``) is
+    ROADMAP Queue A item 12b."""
     if searched:
-        raise NotImplementedError("searched W4 formats need quant/search.py "
-                                  "(ROADMAP Queue A item 10)")
+        raise NotImplementedError("searched LM formats (quant/search.py, "
+                                  "ROADMAP Queue A item 10) are item 12b")
     out = {}
     for path, leaf in flatten_paths(params).items():
         if not (QUANT_WEIGHT_RE.search(path) and isinstance(leaf, torch.Tensor)

@@ -15,6 +15,7 @@ result either.
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -126,7 +127,19 @@ def quant_codes(fmt: FPFormat) -> np.ndarray:
     return np.concatenate([mags, -mags])  # sign bit = MSB
 
 
+def encode_to_codes(x: np.ndarray, fmt: FPFormat, maxval: float
+                    ) -> np.ndarray:
+    """Encode values to integer codes by nearest value (numpy, offline)."""
+    lut = quant_codes(fmt) * (maxval / fmt.base_max)
+    d = np.abs(x[..., None] - lut[None, :])
+    return np.argmin(d, axis=-1).astype(np.uint8)
+
+
 FORMAT_BY_NAME: dict[str, FPFormat] = {}
 for _b in (3, 4, 5, 6, 8):
     for _f in signed_formats(_b) + unsigned_formats(_b):
         FORMAT_BY_NAME[_f.name] = _f
+
+
+def format_list_names(fmts: Sequence[FPFormat]) -> list[str]:
+    return [f.name for f in fmts]

@@ -84,3 +84,37 @@ def assert_forward_close(got, want, *, rel_frob=1e-3, frac=0.01, atol=1e-4):
     off = np.mean(np.abs(got - want) > atol)
     assert err <= rel_frob, f"relative Frobenius error {err:.3g}"
     assert off <= frac, f"{off:.3%} of elements off by more than {atol}"
+
+
+# ---------------------------------------------------------------------------
+# The paper pipeline's state as numpy (what repro_torch.convert takes)
+# ---------------------------------------------------------------------------
+
+def np_qp(qp):
+    return {"kind": qp.kind, "exp_bits": qp.exp_bits,
+            "man_bits": qp.man_bits, "bits": qp.bits,
+            "maxval": np.asarray(qp.maxval, np.float32),
+            "zero_point": np.asarray(qp.zero_point, np.float32)}
+
+
+def np_plan(plan):
+    """A JAX QuantPlan as the nested mappings convert.plan_from_numpy takes."""
+    return {"sites": {k: {"qp": np_qp(s.qp), "is_weight": s.is_weight,
+                          "is_aal": s.is_aal, "mse": s.mse,
+                          "diagnostics": dict(s.diagnostics)}
+                      for k, s in plan.sites.items()},
+            "bits_w": plan.bits_w, "bits_a": plan.bits_a, "mode": plan.mode}
+
+
+def np_db(db):
+    """A JAX CalibrationDB as convert.calibration_db_from_numpy takes it."""
+    return {"sample_cap": db.sample_cap,
+            "sites": {k: {"samples": s.samples, "x_min": s.x_min,
+                          "x_max": s.x_max, "n_seen": s.n_seen}
+                      for k, s in db.sites.items()}}
+
+
+def ref_x_T(key, shape):
+    """The x_T the reference's sampler_init draws from ``key``."""
+    _, k0 = jax.random.split(key)
+    return np.asarray(jax.random.normal(k0, shape))

@@ -46,7 +46,7 @@ from repro_torch.nn import layers
 from repro_torch.nn.unet import io_sites, unet_init
 from repro_torch.quant.calibrate import QuantContext
 from repro_torch.quant.fakequant import QuantizerParams, apply_qdq, fp_qdq
-from repro_torch.quant.formats import FPFormat
+from repro_torch.quant.formats import FPFormat, enumerate_grid
 from repro_torch.serving import (DiffusionServingEngine, VirtualClock,
                                  WeightBank, absmax_talora_setup)
 from repro_torch.serving.obs import Observability
@@ -625,3 +625,174 @@ def test_kernel_profiler_times_the_kernels_on_card(cuda):
         hist = f'kernel_call_seconds{{op="{op}",route="{route}"}}'
         assert snap[f"{hist}_count"] == counts[key]
         assert snap[f"{hist}_sum"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the paper pipeline on the card
+# ---------------------------------------------------------------------------
+
+def _tiny_pipeline_bundle():
+    """tiny_ddim(8) through the port's pipeline on the CPU: calibration,
+    the searched plan on power-of-two scales (``msfp.pow2_plan``), the
+    weights fake-quantized, TALoRA attached."""
+    from repro_torch.core import msfp
+    from repro_torch.diffusion import pipeline as pipe
+    cfg, sched = tiny_ddim(8), make_schedule("linear", 50)
+    params = unet_init(torch.Generator().manual_seed(3), cfg, "cpu")
+    calib = pipe.build_calibration_set(params, cfg, sched, n_samples=2,
+                                       steps=2, batch=2)
+    db = pipe.calibrate_activations(params, cfg, calib)
+    weights = {k: v for k, v in flatten_paths(params).items()
+               if k.endswith("/w")}
+    plan = msfp.pow2_plan(msfp.build_mixed_plan(
+        weights, db, io_sites=io_sites(params), device="cpu"))
+    flat = dict(flatten_paths(params))
+    flat.update(msfp.quantize_weight_tree(weights, plan))
+    from repro_torch.common.tree import unflatten_paths
+    bundle = pipe.QuantizedDiffusion(cfg, sched, params,
+                                     unflatten_paths(flat), plan)
+    return pipe.attach_talora(bundle, TALORA_CFG, seed=4)
+
+
+def _steps(bundle, dev, n=2):
+    from repro_torch.optim.adam import adam_init
+    from repro_torch.train import finetune as ft_mod
+    bundle = bundle.to(dev)
+    ft = ft_mod.FinetuneConfig(batch=2)
+    tr = {"hubs": bundle.hubs, "router": bundle.router}
+    opt = adam_init(tr, ft.adam())
+    gen = torch.Generator().manual_seed(8)
+    gammas = bundle.sched.gamma()
+    out = []
+    for tt in (37, 12)[:n]:
+        x = torch.randn((2, 8, 8, 3), generator=gen).to(dev)
+        tb = torch.full((2,), float(tt), device=dev)
+        g = torch.full((2,), float(gammas[tt]), device=dev)
+        before = tr
+        tr, opt, loss, m = ft_mod.train_step(bundle, ft, tr, opt, x, tb, g,
+                                             t_frac=tt / 50)
+        out.append(dict(tr=tr, opt=opt, loss=loss, grad_norm=m["grad_norm"],
+                        grads=m["grads"], before=before))
+    return out
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda):
+    """Two fine-tune steps card vs CPU from the same state, within
+    finetune.STEP_LIMIT; every hub's B gradient nonzero on the card, the
+    STE's K1 and the convs' qdq_conv2d (under autograd) launched."""
+    from repro_torch.train.finetune import STEP_LIMIT, step_errors
+    bundle = _tiny_pipeline_bundle()
+    k1_before = k1.msfp_qdq_2d_cuda.launches
+    io_before = k1.qdq_conv2d_cuda.launches
+    card = _steps(bundle, cuda)
+    assert k1.msfp_qdq_2d_cuda.launches > k1_before
+    assert k1.qdq_conv2d_cuda.launches > io_before
+    host = _steps(bundle, torch.device("cpu"))
+    grads = flatten_paths(card[0]["grads"])
+    bs = [k for k in grads if k.endswith("/B")]
+    assert len(bs) == len(bundle.hubs)
+    assert all(bool(grads[k].abs().sum() > 0) for k in bs)
+    for c, h in zip(card, host):
+        errs = step_errors(c, h, h["before"])
+        assert all(v <= STEP_LIMIT for v in errs.values()), errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,e,m,bits,mv,zp", [
+    (0, 2, 1, 4, 2.5, 0.0), (1, 2, 2, 4, 3.0, -0.25), (1, 4, 0, 4, 5.0, -0.3),
+    (0, 5, 2, 8, 4.0, 0.0), (1, 5, 3, 8, 2.0, -0.1), (0, 2, 5, 8, 1.3, 0.0)])
+def test_ste_forward_is_k1_bit_exact_on_card(cuda, kind, e, m, bits, mv, zp):
+    """The STE's forward on the card is K1 in the folded form, bit for bit
+    with fp_qdq's folded form on the CPU; its gradient is the same clip
+    mask."""
+    from repro_torch.quant.fakequant import ste_qdq
+    qp = QuantizerParams(kind, e, m, bits, torch.tensor(mv),
+                         torch.tensor(zp))
+    x = torch.randn(4096, 33, generator=torch.Generator().manual_seed(e)) * 3
+    before = k1.msfp_qdq_2d_cuda.launches
+    xc = x.to(cuda).requires_grad_(True)
+    out = ste_qdq(xc, qp.to(cuda))
+    assert k1.msfp_qdq_2d_cuda.launches == before + 1
+    assert torch.equal(out.detach().cpu(), fp_qdq(
+        x, qp.fmt, qp.maxval, qp.zero_point, form="folded"))
+    (g,) = torch.autograd.grad(out.sum(), xc)
+    xh = x.clone().requires_grad_(True)
+    (gh,) = torch.autograd.grad(ste_qdq(xh, qp).sum(), xh)
+    assert torch.equal(g.cpu(), gh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["normal", "silu"])
+def test_batched_search_on_card_matches_cpu(cuda, kind):
+    """The search's batched candidate grids on the card against the CPU's on
+    the same samples: every candidate's MSE within the sum-order bound,
+    the same pick or a near-tie by the CPU's own MSEs."""
+    from repro_torch.quant import formats as F
+    from repro_torch.quant import search
+    x = torch.randn(32768, generator=torch.Generator().manual_seed(1))
+    if kind == "silu":
+        x = x * torch.sigmoid(x)
+    mvs = torch.linspace(0.02, float(x.abs().max()), 99)
+    zps = torch.linspace(-0.3, 0.0, 6)
+    bound = search.tie_bound(x.numel())
+    for fmt in F.signed_formats(4) + F.unsigned_formats(4):
+        if fmt.signed:
+            host = search.mse_signed_grid(x, fmt, mvs)
+            card = search.mse_signed_grid(x.to(cuda), fmt, mvs.to(cuda))
+        else:
+            host = search.mse_unsigned_grid(x, fmt, mvs, zps).ravel()
+            card = search.mse_unsigned_grid(x.to(cuda), fmt, mvs.to(cuda),
+                                            zps.to(cuda)).ravel()
+        assert abs(card - host).max() <= bound * host.max()
+        i, j = int(host.argmin()), int(card.argmin())
+        assert i == j or abs(host[i] - host[j]) <= bound * host[i]
+    r_host = search.search_activation_params(x, 4, allow_unsigned=True,
+                                             device="cpu")
+    r_card = search.search_activation_params(x, 4, allow_unsigned=True,
+                                             device=cuda)
+    assert r_card.params.maxval.is_cuda
+    assert abs(r_card.mse - r_host.mse) <= bound * r_host.mse
+
+
+def _scale_split_case(fmt: FPFormat):
+    """A (K, 64) weight and a per-channel quantizer whose 64 maxvals each
+    round differently as ``maxval / base_max`` and as ``maxval * (1 /
+    base_max)``, every weight within 8 ulps of a grid midpoint, where a
+    one-ulp change of the scale moves the code."""
+    bm = torch.tensor(fmt.base_max)
+    m = torch.rand(1 << 16, generator=torch.Generator().manual_seed(5)) * 3
+    m = m[m / bm != m * (1 / bm)][:64]
+    g = torch.tensor(sorted({abs(v) for v in enumerate_grid(fmt)}),
+                     dtype=torch.float64)
+    mids = ((g[1:] + g[:-1]) / 2).float()
+    zp = torch.tensor(0.0 if fmt.signed else -0.25)
+    w0 = mids[:, None] * (m / bm)[None, :] + zp
+    ulp = torch.nextafter(w0.abs(), torch.tensor(float("inf"))) - w0.abs()
+    w = torch.stack([w0 + o * ulp for o in range(-8, 9)]).reshape(-1, 64)
+    return w, QuantizerParams(S if fmt.signed else U, fmt.exp_bits,
+                              fmt.man_bits, 4, m, zp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,m,signed", [(2, 1, True), (1, 2, True),
+                                        (0, 3, True), (3, 1, False),
+                                        (2, 2, False), (0, 4, False)])
+def test_pack_weight_on_card_equals_cpu_bytes(cuda, monkeypatch, e, m,
+                                              signed):
+    """The weight bank's pack built on the card equals the CPU's bytes at
+    maxvals where the true division ``maxval / base_max`` and a multiply
+    by its reciprocal (CUDA's division by a Python scalar) round apart:
+    the encode divides by a tensor on every device (qmodule.encode_codes,
+    fakequant.true_div). The case is checked to tell the two apart."""
+    from repro_torch.core import qmodule
+    fmt = FPFormat(e, m, signed)
+    w, qp = _scale_split_case(fmt)
+    assert qp.maxval.numel() == 64
+    host = pack_weight(w, qp)
+    card = pack_weight(w.to(cuda), qp.to(cuda))
+    assert torch.equal(card.packed.cpu(), host.packed)
+    assert torch.equal(card.scale.cpu(), host.scale)
+    assert torch.equal(card.zero_point.cpu(), host.zero_point)
+    monkeypatch.setattr(qmodule, "true_div", lambda t, c: t * (1.0 / c))
+    assert not torch.equal(pack_weight(w, qp).packed, host.packed)
