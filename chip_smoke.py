@@ -14,7 +14,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      within rtol = atol = 1e-5 or the f32 sum-order bound, plus one bf16
      rounding step for bf16 outputs, see check_close; kv4_attend within
      kernels/kv4.py:kv4_attend_allowed, that bound carried through the
-     softmax plus one ulp of the load dtype);
+     softmax plus one ulp of the load dtype); K2's weight-only mode
+     (act=None) at the gateway LM's batch-1 shapes in bf16 by check_close;
   4. time kernel, plain version and library yardstick as device time
      (CUDA-graph replays timed with CUDA events; TF32 off for the
      yardsticks and plain versions) beside the bound; qdq_conv2d also
@@ -61,7 +62,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      (device busy, idle share, kernel launches, K2/kv4_store/kv4_attend
      device ms);
   9. every distinct K2/K3 shape launched by the 8 x 10 run of phase 5 and
-     the serve run of phase 7, checked signed and unsigned by check_close
+     the serve run of phase 7, and every K2 shape (either mode) of phase
+     11's mixed_model run, checked signed and unsigned by check_close
      and timed as in phases 3-4, with its launches per forward / per
      decode step in those runs and launches x ms, and per path the sum of
      launches x ms beside the K2/K3 device totals of the phase 6 and 8
@@ -75,9 +77,33 @@ Phases, each fatal on failure (exit code 1, no result line):
      eval_denoising_gap, the kernels at the
      plan's formats), then the 8 x 10 replay on --plan absmax and --plan
      search in turns, each through serve()'s checks;
-  11. a ``kernels`` JSON line (each kernel's launches in all and per path:
+  11. the multi-model gateway and the fleet router at full width
+     (gateway_phase): (a) the golden trace under the virtual clock through
+     a one-model gateway hosting ddim-cifar10 and a one-replica
+     round-robin fleet, each digest equal to phase 5's, and the
+     serve_fleet launcher at its own preset (tiny-ddim, 16) equal to
+     serve_diffusion's there; (b) ddim-cifar10 and smollm-135m (full
+     config: 30 layers, bf16, W4 abs-max, acts off, bf16 KV cache) behind
+     one gateway: mixed_model (8 requests, the mix's model names renamed
+     to the entries') under the virtual clock on the card and on the CPU
+     from the same seed, tick logs, outcomes and bank counters identical,
+     the LM's tokens and the diffusion x0 card vs CPU as readings, K2 in
+     both modes (W4A4 at the UNet's dense sites, weight-only at the LM's,
+     7 a layer and decode step), K3 and qdq_conv2d launched, only the tied
+     LM head off the kernels; then per_model_slo under the slo policy on
+     the wall clock (per-model goodput, p95, SLO verdict, evals/s, tok/s,
+     every bank reconciled); (c) two ddim-cifar10 replicas behind one
+     fleet router on the wall clock: deadline_mix at the fleet bench's
+     shaping (6 req/s, steps jitter 4, max-batch 4, bank cap 6; its 20
+     requests cut to FLEET_REQUESTS = 10 to keep both runs near a minute),
+     round robin then segment affinity (pooled hit rate, goodput, p95,
+     builds, placements, each replica's bank reconciled; both replicas
+     share the one card, so this shows placement, not scaling);
+  12. a ``kernels`` JSON line (each kernel's launches in all and per path:
      per forward for ddim-cifar10, per decode step for smollm-135m, per
-     train step for the pipeline), the card line, and the result line.
+     train step for the pipeline, per forward or decode step by model for
+     the gateway's mixed_model run, per forward for the fleet's runs), the
+     card line, and the result line.
 Needs one card; exits non-zero without one or without the repo around it.
 """
 from __future__ import annotations
@@ -202,13 +228,15 @@ def _qp(dev, signed, maxval, zp=0.0, per=None):
                            torch.tensor(zp, device=dev))
 
 
-def k2_row(dev, m: int, k: int, n: int, dt) -> dict:
+def k2_row(dev, m: int, k: int, n: int, dt, act: bool = True) -> dict:
     """K2 at (m, k) x (k, n) in ``dt``: checked signed (E2M1 weight, E2M1
     acts at maxval 6, the main path) and unsigned (per-channel uE2M2
     weight with a zero-point, uE2M2 acts), then the signed case timed
     beside the plain version, the f32 library product (TF32 off) and, for
     bf16, the bf16 product of the bf16-rounded dequantized weight (a
-    different rounding, reported only)."""
+    different rounding, reported only). ``act=False``: the weight-only
+    mode (``act=None``, the gateway LM's path), both weights with acts
+    off."""
     import torch
     from repro_torch.common.device import no_tf32
     from repro_torch.core.qmodule import dequant_weight, pack_weight
@@ -220,20 +248,23 @@ def k2_row(dev, m: int, k: int, n: int, dt) -> dict:
     cases = [(_qp(dev, True, float(w.abs().max())), _qp(dev, True, 6.0)),
              (_qp(dev, False, 0.0, -0.3 * float(w.abs().max()),
                   per=w.abs().amax(0) * 1.2), _qp(dev, False, 3.0, -0.28))]
-    label = f"({m},{k})x({k},{n})" + (" bf16" if dt == torch.bfloat16 else "")
+    label = k2_label(m, k, n, str(dt)[6:], act)
     row = None
     for i, (wq, aq) in enumerate(cases):
         pw = pack_weight(w, wq)
-        act = (aq.maxval, aq.zero_point, aq.exp_bits, aq.man_bits,
-               aq.kind == 0)
-        args = (x, pw.packed, pw.scale, pw.zero_point, act)
+        if not act:
+            aq = None
+        a = None if aq is None else (aq.maxval, aq.zero_point, aq.exp_bits,
+                                     aq.man_bits, aq.kind == 0)
+        args = (x, pw.packed, pw.scale, pw.zero_point, a)
         kw = dict(exp_bits=pw.exp_bits, man_bits=pw.man_bits,
                   signed=pw.signed)
         got = k2.w4_matmul_2d_cuda(*args, **kw)
         wd = dequant_weight(pw, torch.float32)
         with no_tf32():
             want = k2.w4_matmul_2d_plain(*args, **kw)
-            mag = apply_qdq(x, aq).float().abs() @ abs_weight(pw)
+            xq = x if aq is None else apply_qdq(x, aq)
+            mag = xq.float().abs() @ abs_weight(pw)
         err = check_close(f"w4a4_matmul {label} case {i}", got, want, mag, k)
         if i:
             row["max_abs_err_unsigned"] = err
@@ -253,6 +284,11 @@ def k2_row(dev, m: int, k: int, n: int, dt) -> dict:
             wb = wd.to(torch.bfloat16)
             row["library_bf16_ms"] = cuda_ms(lambda: torch.matmul(x, wb))
     return row
+
+
+def k2_label(m: int, k: int, n: int, dtype: str, act: bool) -> str:
+    return (f"({m},{k})x({k},{n})" + (" bf16" if dtype == "bfloat16" else "")
+            + ("" if act else " weight-only"))
 
 
 def k3_row(dev, b: int, hw: int, cin: int, cout: int, kk: int, s: int
@@ -420,6 +456,11 @@ def kernel_checks(dev):
                         (B, 576, 1536, torch.bfloat16),
                         (B, 1536, 576, torch.bfloat16)):
         rows["w4a4_matmul"].append(k2_row(dev, m, k, n, dt))
+    # K2's weight-only mode (act=None) at the gateway LM's batch-1 decode
+    # (smollm-135m, bf16, acts off): up/gate, down, and q/o projections
+    for m, k, n in ((1, 576, 1536), (1, 1536, 576), (1, 576, 576)):
+        rows["w4a4_matmul"].append(k2_row(dev, m, k, n, torch.bfloat16,
+                                          act=False))
 
     # K3: ResBlock conv 3x3 s1 at 32x32 128->128, downsample 3x3 s2
     # 32->16, up-path 3x3 s1 at 8x8 512->256 and its 1x1 skip 512->256.
@@ -469,6 +510,19 @@ def check_path(name: str, counts: dict, needed, allowed_off) -> None:
         fail(f"{name}: off-kernel routes ran on the card: {off}")
 
 
+def driven(name: str, drive, needed, allowed_off=frozenset()) -> dict:
+    """``drive()`` with the counts set to 0 just before it and read just
+    after, each K2/K3 launch tallied by shape and mode; every kernel of
+    ``needed`` must launch and no other off-kernel route run."""
+    reset_counts()
+    with recording_launches() as shapes:
+        out = drive()
+    counts = launch_counts()
+    check_path(name, counts, needed, allowed_off)
+    check_shapes(name, shapes, counts)
+    return {"counts": counts, "shapes": shapes, "out": out}
+
+
 DIFFUSION_KERNELS = ("qdq_conv2d", "w4a4_matmul", "w4a4_conv2d")
 LM_KERNELS = ("w4a4_matmul", "kv4_store", "kv4_attend")
 
@@ -481,12 +535,8 @@ def serve(name: str, argv: list[str]) -> dict:
     from repro_torch.launch import serve_diffusion
     print(f"--- serve: {name}", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    with recording_launches() as shapes:
-        out = serve_diffusion.main(argv)
-    counts = launch_counts()
-    check_path(name, counts, DIFFUSION_KERNELS, set())
-    check_shapes(name, shapes, counts)
+    run = driven(name, lambda: serve_diffusion.main(argv), DIFFUSION_KERNELS)
+    out, counts, shapes = run["out"], run["counts"], run["shapes"]
     s = out["engine"]
     # the io sites: one qdq_conv2d each a forward, the standalone K1 never
     if counts["msfp_qdq"] or counts["qdq_conv2d"] != 2 * s["forwards"]:
@@ -538,12 +588,15 @@ def wrapped_kernels(wraps: dict):
             setattr(mod, attr, f)
 
 
-def shape_key(kernel: str, x, w, kw) -> tuple:
-    """A K2/K3 call's shape: (m, k, n, dtype) for K2 (``w`` the pack),
-    (b, hw, cin, cout, kh, stride) for K3 (``w`` the PackedW4)."""
+def shape_key(kernel: str, x, w, args, kw) -> tuple:
+    """A K2/K3 call's shape: (m, k, n, dtype, acts on) for K2 (``w`` the
+    pack; its act tuple, or None in the weight-only mode, follows the
+    scale and zero-point), (b, hw, cin, cout, kh, stride) for K3 (``w``
+    the PackedW4)."""
     if kernel == "w4a4_matmul":
+        act = args[2] if len(args) > 2 else kw.get("act")
         return (kernel, (x.shape[0], x.shape[1], 2 * w.shape[1],
-                         str(x.dtype)[6:]))
+                         str(x.dtype)[6:], act is not None))
     b, h, wd, cin = x.shape
     stride = kw["stride"]
     if h != wd or stride[0] != stride[1] or kw["padding"] != "SAME":
@@ -565,7 +618,7 @@ def recording_launches():
             def launch(x, w, *args, **kw):
                 y = f(x, w, *args, **kw)
                 f.launches = launch.launches
-                tally[shape_key(kernel, x, w, kw)] += 1
+                tally[shape_key(kernel, x, w, args, kw)] += 1
                 return y
             return launch
         return wrap
@@ -1313,13 +1366,9 @@ def serve_lm() -> dict:
     from repro_torch.launch import serve
     print("--- serve: smollm-135m W4A4 FP4-KV", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    with recording_launches() as shapes:
-        out = serve.main(LM_ARGV)
-    counts = launch_counts()
-    check_path("smollm-135m serve", counts, LM_KERNELS,
-               {("tied_logits", "torch")})
-    check_shapes("smollm-135m serve", shapes, counts)
+    run = driven("smollm-135m serve", lambda: serve.main(LM_ARGV),
+                 LM_KERNELS, {("tied_logits", "torch")})
+    out, counts, shapes = run["out"], run["counts"], run["shapes"]
     n_layers, per_step = full().n_layers, out["launches_per_step"]
     want = {"kv4_store": n_layers, "kv4_attend": n_layers, "kv4_encode": 0,
             "kv4_decode": 0}
@@ -1596,12 +1645,11 @@ def path_shapes(dev, rows: dict, runs: dict, profiled: dict) -> dict:
     for path, run in runs.items():
         for (kernel, key), count in sorted(run["shapes"].items(), key=str):
             if kernel == "w4a4_matmul":
-                m, k, n, dt = key
-                label = f"({m},{k})x({k},{n})" + (
-                    " bf16" if dt == "bfloat16" else "")
+                m, k, n, dt, act = key
+                label = k2_label(m, k, n, dt, act)
                 if label not in by_label:
                     by_label[label] = k2_row(dev, m, k, n,
-                                             getattr(torch, dt))
+                                             getattr(torch, dt), act)
                     rows[kernel].append(by_label[label])
             else:
                 b, hw, cin, cout, kk, st = key
@@ -1632,9 +1680,11 @@ def path_shapes(dev, rows: dict, runs: dict, profiled: dict) -> dict:
                   f"{r['max_abs_err_unsigned']:.3g}", flush=True)
     for path, ks in sums.items():
         for kernel, total in ks.items():
+            prof = (f"; profiled device total "
+                    f"{profiled[path].get(kernel, 0.0):.4f} ms"
+                    if path in profiled else "")
             print(f"path {path}, per {runs[path]['unit']}: {kernel} sum of "
-                  f"launches x ms {total:.4f} ms; profiled device total "
-                  f"{profiled[path].get(kernel, 0.0):.4f} ms", flush=True)
+                  f"launches x ms {total:.4f} ms{prof}", flush=True)
     return sums
 
 
@@ -2163,6 +2213,347 @@ def pipeline_phase(dev) -> dict:
             "train_run": train_run}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the multi-model gateway and the fleet router at full width.
+# ---------------------------------------------------------------------------
+
+GATEWAY_MODELS = ("ddim-cifar10", "smollm-135m")
+# the fleet bench's deadline_mix shaping (benchmarks/fleet_bench.py): 6
+# req/s, steps jitter 4, max-batch 4, bank cap 6; its 20 requests cut to
+# FLEET_REQUESTS so that both placements' runs stay near a minute
+FLEET_REQUESTS = 10
+FLEET_SHAPING = dict(rate=6.0, steps_jitter=4, max_batch=4, bank_cap=6)
+FLEET_PLACEMENTS = ("round_robin", "segment_affinity")
+
+
+def gateway_registry():
+    """The two models at full width: ddim-cifar10 and smollm-135m's full
+    config (30 layers, bf16), each with the development entries' bank cap,
+    max-batch and SLO."""
+    from repro_torch.serving.gateway import ModelEntry, ModelRegistry
+    from repro_torch.serving.traffic import SLO
+    return ModelRegistry([
+        ModelEntry(name="ddim-cifar10", family="diffusion",
+                   config="ddim-cifar10", bank_cap=4, max_batch=4,
+                   slo=SLO(p95_s=120.0)),
+        ModelEntry(name="smollm-135m", family="lm", config="smollm-135m",
+                   bank_cap=1, max_batch=4, smoke=False,
+                   slo=SLO(p95_s=120.0))])
+
+
+def gateway_of(models, clock: str, device, policy: str = "fifo"):
+    """``serve_gateway.build_gateway`` over ``gateway_registry()`` with the
+    launcher's defaults (seed 0, T 100, max-batch 4)."""
+    from repro_torch.launch import serve_gateway
+    args = serve_gateway.build_parser().parse_args(
+        ["--clock", clock, "--device", str(device), "--policy", policy])
+    args.gateway_max_batch = 4
+    gw, _ = serve_gateway.build_gateway(list(models), args,
+                                        registry=gateway_registry())
+    return gw
+
+
+def renamed(name: str):
+    """A two-model scenario with its mix's model names renamed to the
+    full-width entries' names; nothing else changed."""
+    import dataclasses
+    from repro_torch.serving.traffic import get_scenario
+    scn = get_scenario(name)
+    return dataclasses.replace(scn, mix=dataclasses.replace(
+        scn.mix, models=GATEWAY_MODELS))
+
+
+def fleet_of(dev, replicas: int, placement: str, clock: str, bank_cap: int,
+             max_batch: int):
+    """``serve_fleet.build_fleet`` on ddim-cifar10 (its ``cfg`` seam) with
+    the launcher's defaults (seed 0, T 100), on ``dev``."""
+    from repro_torch.configs.diffusion_presets import ddim_cifar10
+    from repro_torch.launch import serve_fleet
+    args = serve_fleet.build_parser().parse_args(
+        ["--replicas", str(replicas), "--placement", placement,
+         "--clock", clock, "--bank-cap", str(bank_cap), "--device", str(dev)])
+    args.fleet_max_batch = max_batch
+    fleet, _ = serve_fleet.build_fleet(args, cfg=ddim_cifar10())
+    return fleet
+
+
+def reconciled(name: str, bank) -> str:
+    if bank.builds + bank.build_failures != bank.misses + bank.prefetches:
+        fail(f"{name}: bank counters do not reconcile ({bank.describe()})")
+    return (f"{bank.builds} builds = {bank.misses} misses + "
+            f"{bank.prefetches} prefetches")
+
+
+def k2_modes(shapes) -> dict:
+    """K2 launches tallied by mode: acts on (W4A4) and weight-only."""
+    out = {"w4a4": 0, "weight_only": 0}
+    for (kernel, key), c in shapes.items():
+        if kernel == "w4a4_matmul":
+            out["w4a4" if key[4] else "weight_only"] += c
+    return out
+
+
+def model_runs(run: dict, gw) -> dict:
+    """The gateway run's launches split by model: the diffusion model's
+    K2 (acts on), K3 and qdq_conv2d per forward, the LM's K2 (weight-only)
+    per decode step; each a path of the kernels line and of phase 9."""
+    diff, lm = (gw.engine(n) for n in GATEWAY_MODELS)
+    modes = k2_modes(run["shapes"])
+    zero = {k: 0 for k in run["counts"]}
+    d_counts = dict(zero, w4a4_matmul=modes["w4a4"],
+                    w4a4_conv2d=run["counts"]["w4a4_conv2d"],
+                    qdq_conv2d=run["counts"]["qdq_conv2d"])
+    l_counts = dict(zero, w4a4_matmul=modes["weight_only"])
+    split = {"ddim-cifar10": (d_counts, diff.n_forwards, "forward", True),
+             "smollm-135m": (l_counts, lm.n_forwards, "decode step", False)}
+    return {name: {"counts": c, "units": units, "unit": unit,
+                   "shapes": collections.Counter(
+                       {key: n for key, n in run["shapes"].items()
+                        if key[0] == "w4a4_matmul" and key[1][4] == act})}
+            for name, (c, units, unit, act) in split.items()}
+
+
+def gateway_identity(dev, golden_digest: str) -> dict:
+    """Phase 11(a): the golden trace under the virtual clock at full width
+    through a one-model gateway (ddim-cifar10) and a one-replica
+    round-robin fleet, each giving phase 5's golden digest from
+    serve_diffusion; then the serve_fleet launcher at its own preset
+    (tiny-ddim, --image-size 16), whose digest must be serve_diffusion's
+    there."""
+    from repro_torch.launch import serve_diffusion, serve_fleet
+    from repro_torch.launch.serve_diffusion import outcome_digest
+    from repro_torch.serving.traffic import load_trace, submit_trace
+    reqs = load_trace(str(GOLDEN))[0]
+    digests = {}
+    for name, build in (
+            ("gateway", lambda: gateway_of(("ddim-cifar10",), "virtual",
+                                           dev)),
+            ("fleet", lambda: fleet_of(dev, 1, "rr", "virtual", 4, 4))):
+        router = build()
+
+        def drive(router=router):
+            submit_trace(router, reqs)
+            return router.run()
+        run = driven(f"golden trace through the one-model {name}", drive,
+                     DIFFUSION_KERNELS)
+        digests[name] = outcome_digest(run["out"])
+        if digests[name] != golden_digest:
+            fail(f"golden trace through the one-model {name}: digest "
+                 f"{digests[name]} != serve_diffusion's {golden_digest}")
+    launcher = serve_fleet.main(
+        ["--replicas", "1", "--placement", "rr", "--scenario", "golden",
+         "--clock", "virtual", "--device", str(dev)])
+    bare = serve_diffusion.main(
+        ["--preset", "tiny-ddim", "--image-size", "16", "--scenario",
+         "golden", "--replay-clock", "virtual", "--device", str(dev)])
+    if launcher["outcome_digest"] != bare["digest"]:
+        fail(f"serve_fleet --replicas 1 digest {launcher['outcome_digest']} "
+             f"!= serve_diffusion's {bare['digest']} (tiny-ddim, 16)")
+    digests["serve_fleet tiny-ddim"] = launcher["outcome_digest"]
+    print(f"golden trace, virtual clock: one-model gateway {digests['gateway']}"
+          f", one-replica fleet {digests['fleet']} = serve_diffusion's "
+          f"{golden_digest} (ddim-cifar10); serve_fleet --replicas 1 "
+          f"{launcher['outcome_digest']} = serve_diffusion's "
+          f"{bare['digest']} (tiny-ddim, 16)", flush=True)
+    return digests
+
+
+def mixed_record(gw, results) -> dict:
+    """What two virtual-clock runs of one workload must share: each
+    engine's selected ticks (recorded by the caller), each request's gid,
+    model, n_evals and expiry, each bank's counters."""
+    from repro_torch.serving.replay import BANK_COUNTERS
+    return {"outcomes": {g: (rs.gid, rs.model, rs.n_evals, rs.expired)
+                         for g, rs in results.items()},
+            "banks": {n: {k: getattr(gw.engine(n).bank, k)
+                          for k in BANK_COUNTERS}
+                      for n in gw.list_models()}}
+
+
+def gateway_mixed(dev) -> dict:
+    """Phase 11(b): mixed_model (8 Poisson arrivals at 20 req/s, steps
+    6 +- 1, the two models 1:1) under the virtual clock through the
+    two-model gateway on the card (the path: K2 in both modes, K3 and
+    qdq_conv2d; the tied LM head the only off-kernel route) and on the
+    CPU from the same seed: tick logs, outcomes and bank counters
+    identical; the LM's tokens and the diffusion x0 card vs CPU as
+    readings. Then per_model_slo under the slo policy on the wall clock
+    (readings; every bank must reconcile)."""
+    import torch
+    from repro_torch.configs.smollm_135m import full
+    from repro_torch.serving.replay import (eps_free_x0, record_ticks,
+                                            x0_error)
+    from repro_torch.serving.traffic import run_scenario
+    recs, runs = {}, {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        gw = gateway_of(GATEWAY_MODELS, "virtual", device)
+        ticks = {n: record_ticks(gw.engine(n)) for n in GATEWAY_MODELS}
+        t0 = time.perf_counter()
+        if where == "card":
+            run = driven("gateway mixed_model", lambda gw=gw: run_scenario(
+                renamed("mixed_model"), gw, seed=0),
+                DIFFUSION_KERNELS, {("tied_logits", "torch")})
+        else:
+            run = {"out": run_scenario(renamed("mixed_model"), gw, seed=0)}
+        run["wall_s"] = time.perf_counter() - t0
+        recs[where] = dict(mixed_record(gw, gw.results), ticks=ticks)
+        runs[where] = (run, gw)
+    if recs["card"] != recs["cpu"]:
+        bad = [k for k in recs["card"] if recs["card"][k] != recs["cpu"][k]]
+        fail(f"gateway mixed_model, card vs CPU: {bad} differ "
+             f"({recs['card']} vs {recs['cpu']})")
+    run, gw = runs["card"]
+    host = runs["cpu"][1]
+    paths = model_runs(run, gw)
+    lm_steps, fwds = (paths["smollm-135m"]["units"],
+                      paths["ddim-cifar10"]["units"])
+    modes = k2_modes(run["shapes"])
+    per_step = 7 * full().n_layers
+    if (modes["weight_only"] != per_step * lm_steps or not modes["w4a4"]
+            or run["counts"]["qdq_conv2d"] != 2 * fwds
+            or run["counts"]["msfp_qdq"]):
+        fail(f"gateway mixed_model: K2 {modes} over {lm_steps} decode steps "
+             f"(want {per_step} weight-only a step) and {fwds} forwards, "
+             f"qdq_conv2d {run['counts']['qdq_conv2d']} (want 2 a forward), "
+             f"K1 {run['counts']['msfp_qdq']} (want 0)")
+    lm_c, lm_h = (g.engine("smollm-135m").results for g in (gw, host))
+    same = [bool(torch.equal(lm_c[r].x0, lm_h[r].x0)) for r in lm_c]
+    tok_c = torch.cat([lm_c[r].x0 for r in sorted(lm_c)])
+    tok_h = torch.cat([lm_h[r].x0 for r in sorted(lm_h)])
+    d_c, d_h = (g.engine("ddim-cifar10") for g in (gw, host))
+    base = eps_free_x0([rs.req for rs in d_h.results.values()], d_h.sched,
+                       (1, d_h.cfg.image_size, d_h.cfg.image_size,
+                        d_h.cfg.in_ch))
+    x0 = x0_error({r: rs.x0.cpu() for r, rs in d_c.results.items()
+                   if rs.x0 is not None},
+                  {r: rs.x0 for r, rs in d_h.results.items()
+                   if rs.x0 is not None}, base)
+    out = {"identical": ["ticks", "outcomes", "banks"],
+           "lm_requests_tokens_equal": f"{sum(same)}/{len(same)}",
+           "lm_token_share_equal": float((tok_c == tok_h).float().mean()),
+           "diffusion_x0": x0, "launches": run["counts"], "k2_modes": modes,
+           "decode_steps": lm_steps, "forwards": fwds,
+           "card_s": run["wall_s"], "cpu_s": runs["cpu"][0]["wall_s"]}
+    print(f"gateway mixed_model (virtual clock), card vs CPU: tick logs "
+          f"({ {n: len(t) for n, t in recs['card']['ticks'].items()} } "
+          f"ticks), outcomes of {len(recs['card']['outcomes'])} requests "
+          f"and bank counters {recs['card']['banks']} identical; LM requests "
+          f"with every token equal {out['lm_requests_tokens_equal']}, token "
+          f"share equal {out['lm_token_share_equal']:.4f}; diffusion x0 "
+          f"relative Frobenius error {x0['rel_frobenius']:.3g} of its model "
+          f"part, {x0['frac_off']:.4%} off (not held); card "
+          f"{run['wall_s']:.1f}s, CPU {out['cpu_s']:.1f}s; launches "
+          f"{run['counts']}, K2 by mode {modes} over {fwds} forwards and "
+          f"{lm_steps} decode steps", flush=True)
+    out["paths"] = paths
+    out["per_model_slo"] = gateway_slo(dev)
+    return out
+
+
+def gateway_slo(dev) -> dict:
+    """Phase 11(b): per_model_slo (the diffusion requests' deadlines 1.5 s)
+    under the slo policy on the wall clock through the two-model gateway
+    on the card: per model goodput, p95, SLO verdict and bank
+    reconciliation; the diffusion model's evals/s and the LM's tok/s."""
+    from repro_torch.serving.traffic import run_scenario
+    gw = gateway_of(GATEWAY_MODELS, "wall", dev, policy="slo")
+    run = driven("gateway per_model_slo", lambda: run_scenario(
+        renamed("per_model_slo"), gw, seed=0), DIFFUSION_KERNELS,
+        {("tied_logits", "torch")})
+    wall = run["out"]["wall_s"]
+    stats = gw.stats()["per_model"]
+    out = {"wall_s": wall, "goodput_frac": run["out"]["goodput_frac"]}
+    for name in GATEWAY_MODELS:
+        eng = gw.engine(name)
+        summ, slo = stats[name]["summary"], stats[name]["slo"]
+        done = [rs for rs in eng.results.values() if not rs.expired]
+        rate = (sum(rs.n_evals for rs in eng.results.values()) / wall
+                if name == "ddim-cifar10"
+                else sum(len(rs.x0) for rs in done) / wall)
+        out[name] = {"goodput_frac": summ["goodput_frac"],
+                     "p95_s": summ["p95_s"], "slo_passed": slo["passed"],
+                     "expired": summ["expired"],
+                     ("evals_per_s" if name == "ddim-cifar10"
+                      else "tok_per_s"): rate,
+                     "bank": reconciled(f"per_model_slo {name}", eng.bank)}
+        print(f"gateway per_model_slo (slo policy, wall clock) {name}: "
+              f"goodput {summ['goodput_frac']:.4f}, p95 {summ['p95_s']:.4f} "
+              f"s, SLO {'PASS' if slo['passed'] else 'FAIL'}, "
+              f"{summ['expired']} expired, "
+              + (f"{rate:.2f} denoise evals/s" if name == "ddim-cifar10"
+                 else f"{rate:.2f} tok/s")
+              + f", bank {out[name]['bank']}; wall {wall:.2f}s", flush=True)
+    return out
+
+
+def fleet_scenario():
+    import dataclasses
+    from repro_torch.serving.traffic import get_scenario
+    scn = get_scenario("deadline_mix")
+    return dataclasses.replace(
+        scn, n_requests=FLEET_REQUESTS, max_batch=FLEET_SHAPING["max_batch"],
+        mix=dataclasses.replace(scn.mix,
+                                steps_jitter=FLEET_SHAPING["steps_jitter"]),
+        gen_kw=(("rate", FLEET_SHAPING["rate"]),))
+
+
+def fleet_runs(dev) -> dict:
+    """Phase 11(c): two ddim-cifar10 replicas behind one fleet router on
+    the wall clock, deadline_mix at the fleet bench's shaping, round robin
+    and segment affinity in alternating runs; both replicas share the one
+    card, so this shows placement, not scaling. Each run: every kernel of
+    the path launched, no off-kernel route, two qdq_conv2d a forward;
+    pooled hit rate, goodput, p95, builds, placements and per-replica
+    reconciliation."""
+    from repro_torch.serving.traffic import run_scenario
+    out, paths = {}, {}
+    for placement in FLEET_PLACEMENTS:
+        fleet = fleet_of(dev, 2, placement, "wall",
+                         FLEET_SHAPING["bank_cap"], FLEET_SHAPING["max_batch"])
+        run = driven(f"fleet deadline_mix {placement}", lambda: run_scenario(
+            fleet_scenario(), fleet, seed=0), DIFFUSION_KERNELS)
+        fwds = sum(r.engine.n_forwards for r in fleet.replicas)
+        if (run["counts"]["qdq_conv2d"] != 2 * fwds
+                or run["counts"]["msfp_qdq"]):
+            fail(f"fleet {placement}: {run['counts']} over {fwds} forwards")
+        agg = fleet.stats()["aggregate"]
+        s = run["out"]
+        out[placement] = {
+            "bank_hit_rate": agg["bank_hit_rate"],
+            "goodput_frac": s["goodput_frac"], "p95_s": s["p95_s"],
+            "expired": s["expired"], "bank_builds": agg["bank_builds"],
+            "placements": agg["placements"],
+            "placement_reasons": agg["placement_reasons"],
+            "wall_s": s["wall_s"], "forwards": fwds,
+            "replicas": {r.name: reconciled(f"fleet {placement} {r.name}",
+                                            r.bank)
+                         for r in fleet.replicas}}
+        print(f"fleet deadline_mix ({FLEET_REQUESTS} requests, 2 replicas on "
+              f"one card, {placement}, wall clock): pooled bank hit rate "
+              f"{agg['bank_hit_rate']:.4f}, goodput {s['goodput_frac']:.4f}, "
+              f"p95 {s['p95_s']:.4f} s, {s['expired']} expired, "
+              f"{agg['bank_builds']} builds, placements {agg['placements']} "
+              f"{agg['placement_reasons']}, replicas "
+              f"{out[placement]['replicas']}, wall {s['wall_s']:.2f}s",
+              flush=True)
+        paths[f"fleet deadline_mix {placement}"] = dict(
+            run, units=fwds, unit="forward")
+    out["paths"] = paths
+    return out
+
+
+def gateway_phase(dev, golden_digest: str) -> dict:
+    """Phase 11: (a) the identities, (b) the two-model gateway, (c) the
+    fleet; its wall time printed."""
+    print("--- gateway and fleet at full width", flush=True)
+    t0 = time.perf_counter()
+    out = {"identity": gateway_identity(dev, golden_digest),
+           "mixed_model": gateway_mixed(dev), "fleet": fleet_runs(dev)}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"gateway and fleet phase wall {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 # a kernel's instances in a profile: K2/K3 carry their operand loader's
 # name (split-K reduction included; K3's as the template argument
 # "ConvA<", since qdq_conv2d's kernel takes a "ConvArgs"), the kv4
@@ -2264,6 +2655,7 @@ def main() -> None:
     lm = lm_checks(dev)
     pipeline = pipeline_phase(dev)
     plan_runs = plan_serve_runs(trace8)
+    gateway = gateway_phase(dev, golden["out"]["digest"])
     tmp_dir.cleanup()
     rows["qdq_conv2d"].extend(pipeline["io_rows"])
     # each path's own launches, per forward (diffusion), per decode step
@@ -2272,7 +2664,10 @@ def main() -> None:
              "ddim-cifar10 deadline_mix slo": scenario,
              "smollm-135m serve": lm_serve,
              "ddim-cifar10 8x10 --plan search": plan_runs["search_run"],
-             "ddim-cifar10 train step": pipeline["train_run"]}
+             "ddim-cifar10 train step": pipeline["train_run"],
+             **{f"gateway mixed_model {name}": run for name, run in
+                gateway["mixed_model"]["paths"].items()},
+             **gateway["fleet"]["paths"]}
     by_path = {k: {name: {"launches": run["counts"][k],
                           f"per_{run['unit'].replace(' ', '_')}":
                               run["counts"][k] / run["units"]}
@@ -2282,7 +2677,9 @@ def main() -> None:
                 for k in by_path}
     print("--- every main-path K2/K3 shape", flush=True)
     path_sums = path_shapes(
-        dev, rows, {"ddim-cifar10 8x10": wall, "smollm-135m serve": lm_serve},
+        dev, rows, {"ddim-cifar10 8x10": wall, "smollm-135m serve": lm_serve,
+                    **{f"gateway mixed_model {name}": run for name, run in
+                       gateway["mixed_model"]["paths"].items()}},
         {"ddim-cifar10 8x10": fwd["profile_kernel_ms"],
          "smollm-135m serve": lm["profile_kernel_ms"]})
 
@@ -2332,6 +2729,14 @@ def main() -> None:
                       "pipeline": {k: v for k, v in pipeline.items()
                                    if k not in ("train_run", "io_rows")},
                       "plan_evals_per_s": plan_runs["evals_per_s"],
+                      "gateway": {
+                          "identity": gateway["identity"],
+                          "mixed_model": {k: v for k, v in
+                                          gateway["mixed_model"].items()
+                                          if k != "paths"},
+                          "fleet": {k: v for k, v in gateway["fleet"].items()
+                                    if k != "paths"},
+                          "wall_s": gateway["wall_s"]},
                       "lm": {"tok_s": lm_serve["tok_s"],
                              "peak_mib": lm_serve["peak_mib"],
                              "launches_per_step":

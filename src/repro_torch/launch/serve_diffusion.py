@@ -54,6 +54,7 @@ import dataclasses
 import hashlib
 import json
 
+import numpy as np
 import torch
 
 from repro_torch.common.clock import wall_clock
@@ -99,13 +100,18 @@ def _routes_line() -> str:
 
 
 def outcome_digest(results) -> str:
-    """Digest of per-request outcomes (step counts, expiry, final latents)."""
+    """Digest of per-request outcomes (step counts, expiry, final results:
+    a diffusion request's latents, an LM request's token ids), each result
+    hashed as its float32 bytes, as the reference hashes
+    ``np.asarray(x0, np.float32)``."""
     h = hashlib.sha256()
     for rid in sorted(results):
         rs = results[rid]
         h.update(f"{rid}:{rs.n_evals}:{int(rs.expired)}".encode())
         if rs.x0 is not None:
-            h.update(rs.x0.detach().to("cpu", torch.float32).numpy().tobytes())
+            x0 = (rs.x0.detach().to("cpu", torch.float32).numpy()
+                  if isinstance(rs.x0, torch.Tensor) else rs.x0)
+            h.update(np.asarray(x0, np.float32).tobytes())
     return h.hexdigest()[:16]
 
 

@@ -34,15 +34,18 @@ BANK_COUNTERS = ("hits", "misses", "builds", "prefetches", "evictions")
 
 
 def record_ticks(engine) -> list[tuple[int, tuple[int, ...]]]:
-    """Log each tick's (segment, rids of its eval items) as it runs."""
+    """Log each tick's (segment, rids of its members) as the scheduler
+    selects them: for any engine that runs a ``ContinuousBatcher`` (the
+    diffusion engine and the gateway's LM adapter alike, in either
+    package)."""
     log = []
-    run = engine._run_partitions
+    select = engine.batcher.select
 
-    def wrapped(params, items):
-        log.append((engine.batcher.current_seg,
-                    tuple(it[0].req.rid for it in items)))
-        return run(params, items)
-    engine._run_partitions = wrapped
+    def logged(*args, **kw):
+        seg, members = select(*args, **kw)
+        log.append((seg, tuple(rs.req.rid for rs in members)))
+        return seg, members
+    engine.batcher.select = logged
     return log
 
 

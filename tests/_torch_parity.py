@@ -118,3 +118,50 @@ def ref_x_T(key, shape):
     """The x_T the reference's sampler_init draws from ``key``."""
     _, k0 = jax.random.split(key)
     return np.asarray(jax.random.normal(k0, shape))
+
+
+# ---------------------------------------------------------------------------
+# A reference launcher's report layout, read from its source
+# ---------------------------------------------------------------------------
+
+def report_layout(path, func: str = "main", var: str = "report") -> dict:
+    """The keys of the dict literal assigned to ``var`` in ``func`` of the
+    module at ``path``: key -> None, or key -> the layout of a dict literal
+    value, or key -> {"*": layout} for a dict comprehension whose values
+    are such literals. Running the reference's launchers takes over a
+    minute of jit compiles on the CPU; their report is one literal, so its
+    keys are read from the source."""
+    import ast
+    import pathlib
+
+    def layout(node):
+        if isinstance(node, ast.DictComp):
+            entry = layout(node.value)
+            return None if entry is None else {"*": entry}
+        if not isinstance(node, ast.Dict):
+            return None
+        return {k.value: layout(v) for k, v in zip(node.keys, node.values)
+                if isinstance(k, ast.Constant)}
+
+    tree = ast.parse(pathlib.Path(path).read_text())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == func)
+    for node in ast.walk(fn):
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and isinstance(node.targets[0], ast.Name)
+                and node.targets[0].id == var):
+            return layout(node.value)
+    raise LookupError(f"no {var} = {{...}} in {path}:{func}")
+
+
+def assert_layout(got: dict, want: dict, where: str = "report") -> None:
+    """``got`` (a report) has exactly ``want``'s keys at every level
+    ``want`` spells out (``report_layout``)."""
+    if set(want) == {"*"}:
+        for name, entry in got.items():
+            assert_layout(entry, want["*"], f"{where}.{name}")
+        return
+    assert sorted(got) == sorted(want), where
+    for k, sub in want.items():
+        if sub is not None:
+            assert_layout(got[k], sub, f"{where}.{k}")

@@ -38,6 +38,7 @@ from repro_torch.kernels import msfp_quant as k1
 from repro_torch.kernels import ops
 from repro_torch.kernels import w4_matmul as k2
 from repro_torch.diffusion.schedule import make_schedule
+from repro_torch.launch import serve_gateway
 from repro_torch.launch.serve_diffusion import TALORA_CFG
 from repro_torch.launch.steps import (dyadic_weights, make_decode_fn,
                                       quantize_lm_for_serving)
@@ -50,9 +51,10 @@ from repro_torch.quant.formats import FPFormat, enumerate_grid
 from repro_torch.serving import (DiffusionServingEngine, VirtualClock,
                                  WeightBank, absmax_talora_setup)
 from repro_torch.serving.obs import Observability
-from repro_torch.serving.replay import (dyadic_unet_weights, eps_free_x0,
-                                        replay, replay_mismatches, x0_error)
-from repro_torch.serving.traffic import load_trace
+from repro_torch.serving.replay import (BANK_COUNTERS, dyadic_unet_weights,
+                                        eps_free_x0, record_ticks, replay,
+                                        replay_mismatches, x0_error)
+from repro_torch.serving.traffic import get_scenario, load_trace, run_scenario
 from repro_torch.serving.weight_bank import _tree_to
 
 S, U = 0, 1
@@ -295,10 +297,15 @@ def _assert_order_close(got, want, mag, k):
     check_close's rule): per element TOL, or where larger the f32 sum-order
     bound 4 * sqrt(k) * 2^-24 * mag, mag being the same product over |x_q|
     and |w| + |zp| (the order error of a k-term f32 sum grows like sqrt(k)
-    ulps of the summands' magnitude, far above TOL where they cancel)."""
+    ulps of the summands' magnitude, far above TOL where they cancel); a
+    bf16 output adds one bf16 rounding step."""
     diff = (got.float() - want.float()).abs()
     allowed = (TOL["atol"] + TOL["rtol"] * want.float().abs()).maximum(
         4.0 * k ** 0.5 * 2.0 ** -24 * mag)
+    if got.dtype == torch.bfloat16:
+        # one bf16 rounding step: two f32 sums an ulp apart can round to
+        # neighbouring bf16 values (chip_smoke.py:check_close)
+        allowed = allowed + torch.finfo(torch.bfloat16).eps * want.float().abs()
     bad = diff > allowed
     assert not bool(bad.any()), (int(bad.sum()), float(diff.max()))
 
@@ -309,7 +316,7 @@ def _dense_mag(x, args, fmt, k, n):
     xq = x if a is None else fp_qdq(x, FPFormat(a[2], a[3], a[4]), a[0], a[1])
     pw = PackedW4(packed, sc, zp, fmt["exp_bits"], fmt["man_bits"],
                   fmt["signed"], (k, n))
-    return xq.abs() @ _abs_weight(pw)
+    return xq.float().abs() @ _abs_weight(pw)
 
 
 def _dense_case(kind, m, k, n, dt, dev, act=True, seed=7, dyadic=False):
@@ -378,6 +385,30 @@ def test_k2_bf16_bit_exact_on_dyadic_scales(cuda, m, k, n):
     got = k2.w4_matmul_2d(x, *args, **fmt)
     assert got.dtype == torch.bfloat16
     assert torch.equal(got, k2.w4_matmul_2d_plain(x, *args, **fmt))
+
+
+WEIGHT_ONLY_BF16_CASES = [  # (m, k, n, plan): K2's weight-only mode at
+    # smollm-135m's dense shapes, batch-1 decode (the gateway's LM) and
+    # M = 8; gemm_plan splits K at each, (1, 1) forces one split
+    (1, 576, 1536, None), (1, 1536, 576, None), (1, 576, 576, None),
+    (1, 576, 192, None), (8, 576, 1536, None), (8, 1536, 576, None),
+    (1, 1536, 576, (1, 1))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,plan", WEIGHT_ONLY_BF16_CASES)
+def test_k2_weight_only_bf16_matches_plain(cuda, m, k, n, plan):
+    """act=None on bf16 inputs: the raw acts are on no grid, so the f32
+    sums are inexact and bit-exactness cannot be asked; held to the
+    sum-order rule as the f32 act-off cases are, one launch a call."""
+    x, args, fmt = _dense_case(S, m, k, n, torch.bfloat16, cuda, act=False)
+    assert args[3] is None
+    before = k2.w4_matmul_2d_cuda.launches
+    got = k2.w4_matmul_2d_cuda(x, *args, **fmt, plan=plan)
+    assert k2.w4_matmul_2d_cuda.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    _assert_order_close(got, k2.w4_matmul_2d_plain(x, *args, **fmt),
+                        _dense_mag(x, args, fmt, k, n), k)
 
 
 CONV_GPU_CASES = [  # (kind, k, stride, b, hw, cin, cout, dtype): split-K at
@@ -597,6 +628,48 @@ def test_golden_replay_on_card_matches_cpu(cuda, monkeypatch):
         monkeypatch.undo()
         assert not _within(x0_error(ctl["x0"], host["x0"], base),
                            REPLAY_X0_LIMIT)
+
+
+def _gateway_run(dev):
+    """The launcher's two-model smoke gateway (tiny-ddim, smollm-135m's
+    smoke config) on ``dev`` under the virtual clock, serving mixed_model
+    (6 requests, 3 steps): each engine's selected ticks, each request's
+    routing and outcome, each bank's counters, and the LM's tokens."""
+    args = serve_gateway.build_parser().parse_args(
+        ["--smoke", "--clock", "virtual", "--device", str(dev)])
+    args.gateway_max_batch = 2
+    gw, _ = serve_gateway.build_gateway(["tiny-ddim", "smollm-135m"], args)
+    ticks = {n: record_ticks(gw.engine(n)) for n in gw.list_models()}
+    scn = get_scenario("mixed_model")
+    scn = dataclasses.replace(scn, n_requests=6, mix=dataclasses.replace(
+        scn.mix, steps=3, steps_jitter=1))
+    run_scenario(scn, gw, seed=0)
+    return {"ticks": ticks,
+            "outcomes": {g: (rs.model, rs.n_evals, rs.expired)
+                         for g, rs in gw.results.items()},
+            "banks": {n: {k: getattr(gw.engine(n).bank, k)
+                          for k in BANK_COUNTERS}
+                      for n in gw.list_models()}}
+
+
+@pytest.mark.gpu
+def test_two_model_gateway_on_card_matches_cpu(cuda):
+    """Under the virtual clock routing and scheduling do not depend on
+    numerics: card and CPU give the same tick logs, outcomes and bank
+    counters; on the card K2 runs in both modes (W4A4 at the UNet's dense
+    sites, weight-only at the LM's), K3 and qdq_conv2d launch."""
+    host = _gateway_run(torch.device("cpu"))
+    ops.reset_routes()
+    card = _gateway_run(cuda)
+    assert card == host
+    assert len(card["outcomes"]) == 6
+    assert {m for m, _, _ in card["outcomes"].values()} == {"tiny-ddim",
+                                                           "smollm-135m"}
+    routes = dict(ops.ROUTES)
+    for key in (("w4a4_matmul", "cuda"), ("w4_matmul", "cuda"),
+                ("w4a4_conv2d", "cuda:implicit"), ("conv2d", "cuda")):
+        assert routes.get(key, 0) > 0, (key, routes)
+    assert {r for _, r in routes} <= set(ops.KERNEL_ROUTES) | {"torch"}
 
 
 @pytest.mark.gpu

@@ -206,6 +206,11 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    names = {str(f.relative_to(ROOT / "src" / "repro_torch"))
+             for f in files if f.name != "chip_smoke.py"}
+    assert {"serving/gateway/registry.py", "serving/gateway/lm_engine.py",
+            "serving/gateway/gateway.py", "serving/fleet/fleet.py",
+            "launch/serve_gateway.py", "launch/serve_fleet.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
