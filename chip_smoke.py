@@ -16,6 +16,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      kernels/kv4.py:kv4_attend_allowed, that bound carried through the
      softmax plus one ulp of the load dtype); K2's weight-only mode
      (act=None) at the gateway LM's batch-1 shapes in bf16 by check_close;
+     phase 12's new shapes: K1 on bf16 (8, 2560) and (8, 5120) acts
+     (bit-exact), K2 at zamba2's in_proj (8,2560)x(2560,10448) and
+     out_proj and at llama4-scout's expert products (weight-only),
+     kv4_store and kv4_attend at zamba2's, llama4-scout's and gemma3-4b's
+     heads (hd 80, 128, 256; KV4_HEADS);
   4. time kernel, plain version and library yardstick as device time
      (CUDA-graph replays timed with CUDA events; TF32 off for the
      yardsticks and plain versions) beside the bound; qdq_conv2d also
@@ -61,9 +66,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      limit (see lm_checks), then one bf16 decode step timed and profiled
      (device busy, idle share, kernel launches, K2/kv4_store/kv4_attend
      device ms);
-  9. every distinct K2/K3 shape launched by the 8 x 10 run of phase 5 and
-     the serve run of phase 7, and every K2 shape (either mode) of phase
-     11's mixed_model run, checked signed and unsigned by check_close
+  9. every distinct K2/K3 shape launched by the 8 x 10 run of phase 5,
+     the serve run of phase 7 and phase 12's four serve runs, and every K2
+     shape (either mode) of phase 11's mixed_model run (run after phase
+     12), checked signed and unsigned by check_close
      and timed as in phases 3-4, with its launches per forward / per
      decode step in those runs and launches x ms, and per path the sum of
      launches x ms beside the K2/K3 device totals of the phase 6 and 8
@@ -99,11 +105,28 @@ Phases, each fatal on failure (exit code 1, no result line):
      round robin then segment affinity (pooled hit rate, goodput, p95,
      builds, placements, each replica's bank reconciled; both replicas
      share the one card, so this shows placement, not scaling);
-  12. a ``kernels`` JSON line (each kernel's launches in all and per path:
-     per forward for ddim-cifar10, per decode step for smollm-135m, per
-     train step for the pipeline, per forward or decode step by model for
-     the gateway's mixed_model run, per forward for the fleet's runs), the
-     card line, and the result line.
+  12. every LM family's decode at full width (family_phase): (a)
+     zamba2-2.7b (hybrid, all 54 layers), mamba2-370m (ssm, all 48),
+     gemma3-4b (first_k_dense and ring layers, all 34) and
+     llama4-scout-17b-a16e (moe, full width, depth cut to LLAMA4_DEPTH of
+     48 layers, printed as ``reduced``) through launch/serve.py (W4
+     abs-max, E2M1 acts, FP4 cache where there is attention, batch 8, 32 +
+     32 tokens): each shows FAMILY_LAUNCHES per decode step (K2 by mode,
+     kv4_store, kv4_attend, K1), no off-kernel route beyond the tied
+     readout or an untied head's and the router's f32 products; tok/s,
+     prefill and decode seconds and peak memory printed; (b) teacher-forced
+     steps card vs CPU on power-of-two scales (zamba2 in f32 and bf16,
+     llama4-scout at depth 1 in f32), each between its sound reading and
+     control faults (FAMILY_CHECKS), and the kernels against their plain
+     versions on the card (KERNELS_VS_PLAIN_LIMIT); (c) one bf16 decode
+     step of zamba2 and of llama4-scout profiled (busy, idle share,
+     launches, top kernels, K2's device ms by mode); the phase's wall
+     printed;
+  13. a ``kernels`` JSON line (each kernel's launches in all and per path:
+     per forward for ddim-cifar10, per decode step for smollm-135m and
+     phase 12's models, per train step for the pipeline, per forward or
+     decode step by model for the gateway's mixed_model run, per forward
+     for the fleet's runs), the card line, and the result line.
 Needs one card; exits non-zero without one or without the repo around it.
 """
 from __future__ import annotations
@@ -443,6 +466,27 @@ def kernel_checks(dev):
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None))
 
+    # K1 as the LM path runs it: the standalone snap of the bf16 acts
+    # before an untied lm_head (phase 12: zamba2 and gemma3-4b at d_model
+    # 2560, llama4-scout at 5120), signed E2M1 at maxval 6
+    for m, n in ((B, 2560), (B, 5120)):
+        x = randn(m, n, scale=2.0).to(torch.bfloat16)
+        q = qp(True, 6.0)
+        kw = dict(exp_bits=q.exp_bits, man_bits=q.man_bits, signed=True)
+        args = (x, q.maxval, q.zero_point)
+        got = k1.msfp_qdq_2d_cuda(*args, **kw)
+        want = k1.msfp_qdq_2d_plain(*args, **kw)
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            fail(f"msfp_qdq ({m},{n}) bf16: not bit-exact "
+                 f"({int((got != want).sum())} elements differ)")
+        ms = cuda_ms(lambda: k1.msfp_qdq_2d_cuda(*args, **kw))
+        plain_ms = cuda_ms(lambda: k1.msfp_qdq_2d_plain(*args, **kw))
+        b_ms, b_by = bound(20.0 * m * n, 2 * 2 * m * n, PEAK_F32_PER_S)
+        rows["msfp_qdq"].append(dict(
+            shape=f"({m},{n}) bf16", max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
+
     # the io sites, each one qdq_conv2d launch: conv_in 3 -> 128 and
     # conv_out 128 -> 3 at 32x32
     rows["qdq_conv2d"] = [io_conv_row(dev, "conv_in", 3, 128),
@@ -461,6 +505,13 @@ def kernel_checks(dev):
     for m, k, n in ((1, 576, 1536), (1, 1536, 576), (1, 576, 576)):
         rows["w4a4_matmul"].append(k2_row(dev, m, k, n, torch.bfloat16,
                                           act=False))
+    # phase 12's new shapes at batch B in bf16: zamba2's in_proj (N/2 =
+    # 5224, no multiple of 16: the weight's non-vector load) and out_proj
+    # (W4A4); llama4-scout's expert gate/up and down (weight-only)
+    for m, k, n, act in ((B, 2560, 10448, True), (B, 5120, 2560, True),
+                         (B, 5120, 8192, False), (B, 8192, 5120, False)):
+        rows["w4a4_matmul"].append(k2_row(dev, m, k, n, torch.bfloat16,
+                                          act=act))
 
     # K3: ResBlock conv 3x3 s1 at 32x32 128->128, downsample 3x3 s2
     # 32->16, up-path 3x3 s1 at 8x8 512->256 and its 1x1 skip 512->256.
@@ -1246,30 +1297,37 @@ def kv4_checks(dev) -> dict:
     return rows
 
 
+# (n_kv, G, hd) the decode paths give kv4_store and kv4_attend: smollm-135m
+# (phase 7) first, then phase 12's zamba2-2.7b (hd 80: rows 40 bytes
+# apart), llama4-scout (G 5) and gemma3-4b (hd 256)
+KV4_HEADS = ((3, 3, 64), (32, 1, 80), (8, 5, 128), (4, 2, 256))
+
+
 def kv4_pair_checks(dev) -> dict:
     """Phases 3 and 4 for the decode path's pair, on a cache of finite
-    garbage (random codes, f16 scales in [0, 4)), 3 kv-heads x 3 query
-    heads, hd 64. kv4_store at the serve shape (B 8, 64 slots), f32 and
-    bf16: codes and f16 scale bits equal the plain version's after a store
-    at slot 32, every other slot untouched; timed in bf16. kv4_attend held
-    to kv4_attend_allowed at the serve shape (64 slots, 32 valid) in bf16
-    and f32 with and without a softcap, and over 2048 slots, all valid, in
-    bf16; timed in bf16 at both. Bounds: bytes (each input read once, only
-    the valid slots of the cache, each output written once) or operations
-    (the encode's 20 f32 an element as K4; attend's two products, 4 G x
-    valid x hd a (batch, kv-head), at the bf16 tensor-core rate as
-    ``bound`` prices products, beside 2 f32 a decoded K/V value, each
-    counted once: a multiply and a rounding); the yardstick is
-    F.scaled_dot_product_attention (enable_gqa) over the valid slots of a
-    bf16 cache decoded beforehand, untimed: attention only."""
+    garbage (random codes, f16 scales in [0, 4)), at each of KV4_HEADS.
+    kv4_store at the serve shape (B 8, 64 slots), f32 and bf16: codes and
+    f16 scale bits equal the plain version's after a store at slot 32,
+    every other slot untouched; timed in bf16. kv4_attend held to
+    kv4_attend_allowed at the serve shape (64 slots, 32 valid) in bf16 and
+    f32 with and without a softcap, and, at smollm-135m's heads, over 2048
+    slots, all valid, in bf16; timed in bf16 at each. Bounds: bytes (each
+    input read once, only the valid slots of the cache, each output
+    written once) or operations (the encode's 20 f32 an element as K4;
+    attend's two products, 4 G x valid x hd a (batch, kv-head), at the
+    bf16 tensor-core rate as ``bound`` prices products, beside 2 f32 a
+    decoded K/V value, each counted once: a multiply and a rounding); the
+    yardstick is F.scaled_dot_product_attention (enable_gqa) over the
+    valid slots of a bf16 cache decoded beforehand, untimed: attention
+    only."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import kv4 as k45
     gen = torch.Generator().manual_seed(5)
-    n_kv, g, hd = 3, 3, 64
     rows = {"kv4_store": [], "kv4_attend": []}
+    checks = {}
 
-    def cache(slots):
+    def cache(slots, n_kv, hd):
         codes = (B, slots, n_kv, hd // 2)
         c = [torch.randint(0, 256, codes, generator=gen, dtype=torch.uint8),
              torch.randint(0, 256, codes, generator=gen, dtype=torch.uint8),
@@ -1281,71 +1339,75 @@ def kv4_pair_checks(dev) -> dict:
         return (torch.randn(*shape, generator=gen) * torch.rand(
             *shape[:-1], 1, generator=gen) * 8).to(dev, dt)
 
-    fp4 = cache(64)
-    for dt in (torch.bfloat16, torch.float32):
-        k_new, v_new = draw(B, n_kv, hd, dt=dt), draw(B, n_kv, hd, dt=dt)
-        got, want = [x.clone() for x in fp4], [x.clone() for x in fp4]
-        k45.kv4_store_cuda(k_new, v_new, *got, 32)
-        k45.kv4_store_plain(k_new, v_new, *want, 32)
-        diff = sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
-                   for a, b in zip(got, want))
-        if diff:
-            fail(f"kv4_store B{B} S64 {dt}: not bit-exact ({diff} bytes "
-                 "differ)")
-        if dt != torch.bfloat16:
-            continue
-        ms = cuda_ms(lambda: k45.kv4_store_cuda(k_new, v_new, *got, 32))
-        plain_ms = cuda_ms(
-            lambda: k45.kv4_store_plain(k_new, v_new, *want, 32))
-        n = 2 * B * n_kv
-        b_ms, b_by = bound(20.0 * n * hd, 2 * n * hd + n * (hd // 2 + 2),
-                           PEAK_F32_PER_S)
-        rows["kv4_store"].append(dict(
-            shape=f"B{B} S64 K{n_kv} hd{hd} bf16", max_abs_err=0.0, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    for n_kv, g, hd in KV4_HEADS:
+        heads = f"K{n_kv} G{g} hd{hd}"
+        fp4 = cache(64, n_kv, hd)
+        for dt in (torch.bfloat16, torch.float32):
+            k_new, v_new = draw(B, n_kv, hd, dt=dt), draw(B, n_kv, hd, dt=dt)
+            got, want = [x.clone() for x in fp4], [x.clone() for x in fp4]
+            k45.kv4_store_cuda(k_new, v_new, *got, 32)
+            k45.kv4_store_plain(k_new, v_new, *want, 32)
+            diff = sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+                       for a, b in zip(got, want))
+            if diff:
+                fail(f"kv4_store B{B} S64 {heads} {dt}: not bit-exact "
+                     f"({diff} bytes differ)")
+            if dt != torch.bfloat16:
+                continue
+            ms = cuda_ms(lambda: k45.kv4_store_cuda(k_new, v_new, *got, 32))
+            plain_ms = cuda_ms(
+                lambda: k45.kv4_store_plain(k_new, v_new, *want, 32))
+            n = 2 * B * n_kv
+            b_ms, b_by = bound(20.0 * n * hd,
+                               2 * n * hd + n * (hd // 2 + 2), PEAK_F32_PER_S)
+            rows["kv4_store"].append(dict(
+                shape=f"B{B} S64 {heads} bf16", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None))
 
-    checks = {}
-    cases = [(64, 32, torch.bfloat16, None), (64, 32, torch.bfloat16, 30.0),
-             (64, 32, torch.float32, None), (64, 32, torch.float32, 30.0),
-             (2048, 2048, torch.bfloat16, None)]
-    for slots, valid, dt, softcap in cases:
-        fp4 = cache(slots) if slots != 64 else fp4
-        q = draw(B, n_kv, g, hd, dt=dt)
-        args = (valid, hd ** -0.5, softcap)
-        got = k45.kv4_attend_cuda(q, *fp4, *args)
-        want = k45.kv4_attend_plain(q, *fp4, *args)
-        allowed = k45.kv4_attend_allowed(q, *fp4, *args, want)
-        diff = (got.double() - want.double()).abs()
-        label = (f"B{B} S{slots} valid {valid} K{n_kv} G{g} hd{hd} "
-                 f"{str(dt)[6:]}" + (f" softcap {softcap:g}" if softcap
-                                     else ""))
-        if bool((diff > allowed).any()):
-            fail(f"kv4_attend {label}: {int((diff > allowed).sum())} "
-                 f"elements outside kv4_attend_allowed (max abs err "
-                 f"{float(diff.max()):.3g})")
-        err = checks[label] = float(diff.max())
-        print(f"kv4_attend {label}: max abs err {err:.3g}, largest share of "
-              f"the allowance {float((diff / allowed).max()):.3g}",
-              flush=True)
-        if dt != torch.bfloat16 or softcap:
-            continue
-        ms = cuda_ms(lambda: k45.kv4_attend_cuda(q, *fp4, *args))
-        plain_ms = cuda_ms(lambda: k45.kv4_attend_plain(q, *fp4, *args))
-        keys, vals = (k45._decode_cache(c, sc, dt)[:, :valid].transpose(1, 2)
-                      .contiguous() for c, sc in ((fp4[0], fp4[2]),
-                                                  (fp4[1], fp4[3])))
-        qs = q.reshape(B, n_kv * g, 1, hd)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qs, keys, vals, enable_gqa=True))
-        b_ms, b_by = bound(
-            4.0 * B * n_kv * g * valid * hd,
-            2 * 2 * B * n_kv * g * hd + 2 * B * valid * n_kv * (hd // 2 + 2),
-            f32_ops=2.0 * 2 * B * n_kv * valid * hd)
-        rows["kv4_attend"].append(dict(
-            shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            library="F.scaled_dot_product_attention(enable_gqa=True), "
-                    "attention only, cache pre-decoded"))
+        cases = [(64, 32, torch.bfloat16, None),
+                 (64, 32, torch.bfloat16, 30.0),
+                 (64, 32, torch.float32, None), (64, 32, torch.float32, 30.0)]
+        if (n_kv, g, hd) == KV4_HEADS[0]:
+            cases.append((2048, 2048, torch.bfloat16, None))
+        for slots, valid, dt, softcap in cases:
+            c = cache(slots, n_kv, hd) if slots != 64 else fp4
+            q = draw(B, n_kv, g, hd, dt=dt)
+            args = (valid, hd ** -0.5, softcap)
+            got = k45.kv4_attend_cuda(q, *c, *args)
+            want = k45.kv4_attend_plain(q, *c, *args)
+            allowed = k45.kv4_attend_allowed(q, *c, *args, want)
+            diff = (got.double() - want.double()).abs()
+            label = (f"B{B} S{slots} valid {valid} {heads} {str(dt)[6:]}"
+                     + (f" softcap {softcap:g}" if softcap else ""))
+            if bool((diff > allowed).any()):
+                fail(f"kv4_attend {label}: {int((diff > allowed).sum())} "
+                     f"elements outside kv4_attend_allowed (max abs err "
+                     f"{float(diff.max()):.3g})")
+            err = checks[label] = float(diff.max())
+            print(f"kv4_attend {label}: max abs err {err:.3g}, largest share "
+                  f"of the allowance {float((diff / allowed).max()):.3g}",
+                  flush=True)
+            if dt != torch.bfloat16 or softcap:
+                continue
+            ms = cuda_ms(lambda: k45.kv4_attend_cuda(q, *c, *args))
+            plain_ms = cuda_ms(lambda: k45.kv4_attend_plain(q, *c, *args))
+            keys, vals = (k45._decode_cache(x, sc, dt)[:, :valid]
+                          .transpose(1, 2).contiguous()
+                          for x, sc in ((c[0], c[2]), (c[1], c[3])))
+            qs = q.reshape(B, n_kv * g, 1, hd)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qs, keys, vals, enable_gqa=True))
+            b_ms, b_by = bound(
+                4.0 * B * n_kv * g * valid * hd,
+                2 * 2 * B * n_kv * g * hd
+                + 2 * B * valid * n_kv * (hd // 2 + 2),
+                f32_ops=2.0 * 2 * B * n_kv * valid * hd)
+            rows["kv4_attend"].append(dict(
+                shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                library="F.scaled_dot_product_attention(enable_gqa=True), "
+                        "attention only, cache pre-decoded"))
     rows["kv4_attend"][0]["checks"] = checks
     return rows
 
@@ -2554,6 +2616,341 @@ def gateway_phase(dev, golden_digest: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: every LM family's decode at full width.
+# ---------------------------------------------------------------------------
+
+# depth cut of llama4-scout-17b-a16e (48 layers of 2.2 G params, 211 GB in
+# bf16): 4 layers and the embed/head hold about 22 GB in bf16 at init
+LLAMA4_DEPTH = 4
+# (arch, layers served or None for all): the hybrid, ssm, dense-with-
+# first_k_dense and moe families at full width
+FAMILY_RUNS = (("zamba2-2.7b", None), ("mamba2-370m", None),
+               ("gemma3-4b", None), ("llama4-scout-17b-a16e", LLAMA4_DEPTH))
+# launches each must show per decode step (prompt and generated steps
+# alike): K2 W4A4 at the dense sites (4 an attention layer, the MLP's 2 or
+# 3, 2 an SSM layer, 3 the shared expert), K2 weight-only at every expert
+# product (3 an expert), kv4_store and kv4_attend once an attention layer
+# (zamba2: the shared block once a group), K1 once for an untied head
+FAMILY_LAUNCHES = {
+    "zamba2-2.7b": dict(w4a4=162, weight_only=0, kv4_store=9, kv4_attend=9,
+                        msfp_qdq=1),
+    "mamba2-370m": dict(w4a4=96, weight_only=0, kv4_store=0, kv4_attend=0,
+                        msfp_qdq=0),
+    "gemma3-4b": dict(w4a4=238, weight_only=0, kv4_store=34, kv4_attend=34,
+                      msfp_qdq=1),
+    "llama4-scout-17b-a16e": dict(w4a4=28, weight_only=192, kv4_store=4,
+                                  kv4_attend=4, msfp_qdq=1)}
+
+
+def family_config(arch: str, depth=None):
+    """The arch's full config, ``depth`` layers of it when given."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+
+
+def has_attention(cfg) -> bool:
+    return (any(kind == "attn" for kind, _, _ in cfg.layer_pattern)
+            or bool(cfg.first_k_dense or cfg.shared_attn_every))
+
+
+def free_card() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_family(arch: str, depth) -> dict:
+    """Phase 12(a): one arch through the LM launcher at full width (random
+    weights from the seed, W4 abs-max, E2M1 acts fused, FP4 cache where
+    there is attention, batch 8, 32 prompt tokens stepped in and 32
+    generated), its depth cut through the launcher's ``cfg`` seam where
+    ``depth`` is given. Only kernel routes may run apart from the plain
+    products the reference computes outside any kernel (the tied readout;
+    an untied head's and the MoE router's f32 products); the launches per
+    decode step, K2's by mode from the launches tallied by shape, must be
+    FAMILY_LAUNCHES'."""
+    from repro_torch.launch import serve
+    cfg = family_config(arch, depth)
+    attn = has_attention(cfg)
+    name = f"{arch} serve" + (f" (depth {depth})" if depth else "")
+    print(f"--- serve: {name} W4A4" + (" FP4-KV" if attn else ""),
+          flush=True)
+    argv = ["--arch", arch, "--quant", "w4", "--act-quant", "fp4", "--kv",
+            "fp4" if attn else "bf16", "--batch", str(B), "--prompt-len",
+            "32", "--gen-len", "32", "--device", "cuda"]
+    needed = ["w4a4_matmul"] + (["kv4_store", "kv4_attend"] if attn else []) \
+        + ([] if cfg.tie_embeddings else ["msfp_qdq"])
+    allowed = ({("tied_logits", "torch")} if cfg.tie_embeddings
+               else {("matmul", "torch_f32")})
+    t0 = time.perf_counter()
+    run = driven(name, lambda: serve.main(argv, cfg=cfg), needed, allowed)
+    wall = time.perf_counter() - t0
+    out, counts, shapes = run["out"], run["counts"], run["shapes"]
+    steps = out["steps"]
+    modes = k2_modes(shapes)
+    per_step = {"w4a4": modes["w4a4"] / steps,
+                "weight_only": modes["weight_only"] / steps,
+                **{k: counts[k] / steps
+                   for k in ("kv4_store", "kv4_attend", "msfp_qdq")}}
+    if per_step != FAMILY_LAUNCHES[arch]:
+        fail(f"{name}: launches per decode step {per_step}, expected "
+             f"{FAMILY_LAUNCHES[arch]}")
+    if counts["kv4_encode"] or counts["kv4_decode"] or counts[
+            "w4a4_conv2d"] or counts["qdq_conv2d"]:
+        fail(f"{name}: a kernel off the decode path launched: {counts}")
+    peak = out["peak_bytes"] / 2**30
+    reduced = (f"; reduced: n_layers {cfg.n_layers} of "
+               f"{family_config(arch).n_layers}, widths as published"
+               if depth else "")
+    print(f"serve {name}: {out['tok_s']:.2f} tok/s decode at batch {B}, "
+          f"prefill {out['prefill_s']:.3f}s, decode {out['decode_s']:.3f}s, "
+          f"max_memory_allocated {peak:.2f} GiB, {out['params']} params, "
+          f"launches per decode step {per_step}, run wall {wall:.1f}s"
+          + reduced, flush=True)
+    return {"counts": counts, "units": steps, "unit": "decode step",
+            "shapes": shapes, "tok_s": out["tok_s"],
+            "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+            "peak_gib": peak, "params": out["params"],
+            "launches_per_step": per_step, "reduced": bool(depth),
+            "n_layers": cfg.n_layers}
+
+
+@contextlib.contextmanager
+def ssm_state_in_bf16():
+    """A control fault: each SSM layer's f32 state rounded to bf16 after
+    its update (a recurrence kept in the model's low precision), while the
+    context is open."""
+    from repro_torch.models import lm
+    orig = lm.ssm_decode
+
+    def rounded(*args, **kw):
+        out, cache = orig(*args, **kw)
+        cache["state"].copy_(cache["state"].bfloat16().float())
+        return out, cache
+    lm.ssm_decode = rounded
+    try:
+        yield
+    finally:
+        lm.ssm_decode = orig
+
+
+# card vs CPU decode checks of phase 12(b): (arch, depth, dtype name,
+# teacher-forced steps, limit on the relative Frobenius error of the
+# logits, the control faults that must break it). Each limit lies between
+# the sound reading and its controls' (on an NVIDIA H100 80GB HBM3 at
+# 700.00 W; PERF.md). zamba2 in f32 reads 0.0432 card vs CPU, and the same
+# 0.0432 with K2 and K1 on their plain versions on the card: the torch ops
+# between the kernels (exp, softplus, silu, the norms' sums) differ from
+# the CPU's by ulps, which flip an E2M1 act tie at in_proj or out_proj
+# about once a step, and 54 layers of random weights carry each flip on;
+# its limit is the geometric mean of that and its weaker control (0.331).
+# In bf16 the model's own roundings absorb those ulps (1.03e-5).
+FAMILY_CHECKS = (
+    ("zamba2-2.7b", None, "float32", 3, 0.12,
+     ("bf16 acts into K2", "SSM state in bf16")),
+    ("zamba2-2.7b", None, "bfloat16", 3, 2e-2, ("SSM state in bf16",)),
+    ("llama4-scout-17b-a16e", 1, "float32", 2, 1e-3, ("bf16 acts into K2",)))
+# the same steps through the kernels and through their plain versions on
+# the card (the torch ops between them identical): relative Frobenius
+# error of the logits (they read 0 on the same card)
+KERNELS_VS_PLAIN_LIMIT = 1e-5
+CONTROLS = {"bf16 acts into K2": bf16_act_kernels,
+            "SSM state in bf16": ssm_state_in_bf16}
+
+
+def family_decode_checks(dev) -> dict:
+    """Phase 12(b): teacher-forced decode steps at batch 8, full width, W4A4
+    on ``steps.dyadic_weights`` (power-of-two scales: the W4A4 sums are
+    exact) with the FP4 cache, through the kernels on the card and through
+    the plain versions on the CPU, from the same packs (drawn and packed on
+    the card, copied to the host); each held to its FAMILY_CHECKS limit,
+    and each control fault, rerun on the card, must break it; the kernels
+    against their plain versions on the card held to
+    KERNELS_VS_PLAIN_LIMIT. zamba2's SSM layers run exp, softplus and silu
+    ahead of out_proj's act snap, so the limit is derived from the
+    readings, not taken from LM_LIMITS."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import (dyadic_weights, make_decode_fn,
+                                          quantize_lm_for_serving)
+    from repro_torch.models.lm import init_caches, lm_init
+    from repro_torch.quant.calibrate import QuantContext
+    from repro_torch.quant.fakequant import QuantizerParams
+    from repro_torch.serving.weight_bank import _tree_to
+
+    def run(cfg, params, device, toks):
+        ctx = QuantContext("serve", act_qps={"*": QuantizerParams(
+            0, 2, 1, 4, torch.tensor(6.0, device=device))})
+        step = make_decode_fn(cfg, ctx=ctx)
+        caches = init_caches(cfg, B, toks.shape[1], device)
+        out = []
+        with torch.inference_mode():
+            for i in range(toks.shape[1]):
+                lg, caches = step(params, caches, toks[:, i:i + 1].to(device),
+                                  i)
+                out.append(lg.float().cpu())
+        return torch.stack(out).double().numpy()
+
+    def reading(g, w) -> dict:
+        return {"rel_frobenius": float(np.linalg.norm(g - w)
+                                       / max(np.linalg.norm(w), 1e-30)),
+                "max_abs_over_max": float(np.abs(g - w).max()
+                                          / np.abs(w).max()),
+                "argmax_equal": bool((g.argmax(-1) == w.argmax(-1)).all())}
+
+    res = {}
+    for arch, depth, dname, steps, limit, controls in FAMILY_CHECKS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(family_config(arch, depth),
+                                  dtype=getattr(torch, dname), kv_dtype="fp4")
+        packed = quantize_lm_for_serving(dyadic_weights(lm_init(
+            torch.Generator(device=dev).manual_seed(0), cfg, dev)))
+        host = _tree_to(packed, torch.device("cpu"))
+        toks = torch.randint(0, cfg.vocab, (B, steps),
+                             generator=torch.Generator().manual_seed(1))
+        g = run(cfg, packed, dev, toks)
+        if not np.isfinite(g).all():
+            fail(f"{arch} {dname} decode on the card is not finite")
+        w = run(cfg, host, torch.device("cpu"), toks)
+        sound = reading(g, w)
+        # K2 and K1 on their plain versions on the card: against the CPU
+        # only the torch ops between the kernels differ (a reading), against
+        # the kernels only the kernels (held)
+        with plain_kernels(("w4a4_matmul", "msfp_qdq")):
+            gp = run(cfg, packed, dev, toks)
+        plain, vs_plain = reading(gp, w), reading(g, gp)
+        faults = {}
+        for c in controls:
+            with CONTROLS[c]():
+                faults[c] = reading(run(cfg, packed, dev, toks), w)
+        label = f"{arch}" + (f" depth {depth}" if depth else "") + \
+            f" {dname}"
+        print(f"decode {label} W4A4 FP4-KV B={B}, {steps} teacher-forced "
+              f"steps, dyadic weights, card vs CPU plain: {sound}; held to "
+              f"relative Frobenius error <= {limit:g}; the card with K2 and "
+              f"K1 on their plain versions vs the CPU (a reading): {plain}; "
+              f"the kernels vs their plain versions on the card: {vs_plain}, "
+              f"held to <= {KERNELS_VS_PLAIN_LIMIT:g}; control faults: "
+              + "; ".join(f"{c}: {r}" for c, r in faults.items())
+              + f" (wall {time.perf_counter() - t0:.1f}s)", flush=True)
+        if sound["rel_frobenius"] > limit:
+            fail(f"{label} decode on the card disagrees with the plain CPU "
+                 f"decode ({sound['rel_frobenius']:.3g} > {limit:g})")
+        if vs_plain["rel_frobenius"] > KERNELS_VS_PLAIN_LIMIT:
+            fail(f"{label} decode through the kernels disagrees with their "
+                 f"plain versions on the card ({vs_plain['rel_frobenius']:.3g}"
+                 f" > {KERNELS_VS_PLAIN_LIMIT:g})")
+        for c, r in faults.items():
+            if r["rel_frobenius"] <= limit:
+                fail(f"{label}: control fault '{c}' passes the decode check "
+                     f"({r['rel_frobenius']:.3g} <= {limit:g}): the check "
+                     "would not see it")
+        res[label] = {"sound": sound, "card_plain_versions": plain,
+                      "kernels_vs_plain": vs_plain, "controls": faults,
+                      "limit": limit}
+        del packed, host
+        free_card()
+    return res
+
+
+@contextlib.contextmanager
+def k2_mode_ranges():
+    """Each K2 launch inside a profiler range named by its mode ("K2
+    W4A4" / "K2 weight-only"), while the context is open, so a profile
+    splits K2's device time by mode (a bf16 instance's symbol does not
+    tell them apart)."""
+    import torch
+
+    def wrap(f):
+        def launch(x, w, *args, **kw):
+            act = args[2] if len(args) > 2 else kw.get("act")
+            with torch.profiler.record_function(
+                    "K2 W4A4" if act is not None else "K2 weight-only"):
+                y = f(x, w, *args, **kw)
+            f.launches = launch.launches
+            return y
+        return launch
+    with wrapped_kernels({"w4a4_matmul": wrap}):
+        yield
+
+
+def range_device_ms(prof, name: str) -> float:
+    """Device ms of the profiler ranges named ``name``: each range's row on
+    the card spans the kernels launched inside it (a split-K launch's
+    reduction included)."""
+    import torch
+    from repro_torch.launch.profile_decode import device_us
+    return sum(device_us(e) for e in prof.key_averages()
+               if e.key == name
+               and e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def family_profiles(dev) -> dict:
+    """Phase 12(c): one bf16 decode step of zamba2-2.7b and of llama4-scout
+    at its cut depth (launch/profile_decode.py's configuration: W4A4, FP4
+    cache of 64 slots half full, batch 8): wall, device busy time, idle
+    share, launches, top kernels and K2's device ms by mode."""
+    import dataclasses
+    from repro_torch.launch.profile_decode import decode_step_profile
+    out = {}
+    for arch, depth in (("zamba2-2.7b", None),
+                        ("llama4-scout-17b-a16e", LLAMA4_DEPTH)):
+        cfg = dataclasses.replace(family_config(arch, depth), kv_dtype="fp4")
+        with k2_mode_ranges():
+            prof = decode_step_profile(cfg, B, 64, 32, dev)
+        p = prof.pop("prof")
+        _, top = device_time(p)
+        per_kernel = kernel_ms(prof["kernels"])
+        modes = {m: range_device_ms(p, f"K2 {m}")
+                 for m in ("W4A4", "weight-only")}
+        label = arch + (f" depth {depth}" if depth else "")
+        print(f"profile decode step {label} bf16 B={B}: unprofiled wall "
+              f"{prof['step_ms']:.3f} ms (median of 10; host CPU "
+              f"{prof['cpu_ms']:.3f} ms), profiled wall "
+              f"{prof['profile_wall_ms']:.3f} ms, device busy "
+              f"{prof['busy_ms']:.3f} ms, idle share "
+              f"{prof['idle_share']:.3f} ({prof['idle_share_profiled']:.3f} "
+              f"of the profiled step), {prof['launches']} CUDA kernel "
+              f"launches; K2 device ms by mode {modes}; device "
+              + ", ".join(f"{k} {v['ms']:.4f} ms x{v['launches']}"
+                          for k, v in per_kernel.items() if v["launches"]),
+              flush=True)
+        for line in top:
+            print(line, flush=True)
+        out[label] = {k: prof[k] for k in (
+            "step_ms", "cpu_ms", "profile_wall_ms", "busy_ms", "idle_share",
+            "idle_share_profiled", "launches")}
+        out[label]["k2_ms_by_mode"] = modes
+        out[label]["profile_kernel_ms"] = {k: v["ms"]
+                                           for k, v in per_kernel.items()}
+        del p
+        free_card()
+    return out
+
+
+def family_phase(dev) -> dict:
+    """Phase 12: (a) the four serve runs, (b) the card-vs-CPU decode
+    checks, (c) the profiles; its wall time printed."""
+    print("--- every LM family at full width", flush=True)
+    t0 = time.perf_counter()
+    runs = {}
+    for arch, depth in FAMILY_RUNS:
+        runs[f"{arch} serve"] = serve_family(arch, depth)
+        free_card()
+    out = {"runs": runs, "checks": family_decode_checks(dev),
+           "profiles": family_profiles(dev)}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"LM families phase wall {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 # a kernel's instances in a profile: K2/K3 carry their operand loader's
 # name (split-K reduction included; K3's as the template argument
 # "ConvA<", since qdq_conv2d's kernel takes a "ConvArgs"), the kv4
@@ -2656,6 +3053,7 @@ def main() -> None:
     pipeline = pipeline_phase(dev)
     plan_runs = plan_serve_runs(trace8)
     gateway = gateway_phase(dev, golden["out"]["digest"])
+    families = family_phase(dev)
     tmp_dir.cleanup()
     rows["qdq_conv2d"].extend(pipeline["io_rows"])
     # each path's own launches, per forward (diffusion), per decode step
@@ -2667,7 +3065,7 @@ def main() -> None:
              "ddim-cifar10 train step": pipeline["train_run"],
              **{f"gateway mixed_model {name}": run for name, run in
                 gateway["mixed_model"]["paths"].items()},
-             **gateway["fleet"]["paths"]}
+             **gateway["fleet"]["paths"], **families["runs"]}
     by_path = {k: {name: {"launches": run["counts"][k],
                           f"per_{run['unit'].replace(' ', '_')}":
                               run["counts"][k] / run["units"]}
@@ -2679,9 +3077,15 @@ def main() -> None:
     path_sums = path_shapes(
         dev, rows, {"ddim-cifar10 8x10": wall, "smollm-135m serve": lm_serve,
                     **{f"gateway mixed_model {name}": run for name, run in
-                       gateway["mixed_model"]["paths"].items()}},
+                       gateway["mixed_model"]["paths"].items()},
+                    **families["runs"]},
         {"ddim-cifar10 8x10": fwd["profile_kernel_ms"],
-         "smollm-135m serve": lm["profile_kernel_ms"]})
+         "smollm-135m serve": lm["profile_kernel_ms"],
+         "zamba2-2.7b serve":
+             families["profiles"]["zamba2-2.7b"]["profile_kernel_ms"],
+         "llama4-scout-17b-a16e serve": families["profiles"][
+             f"llama4-scout-17b-a16e depth {LLAMA4_DEPTH}"][
+             "profile_kernel_ms"]})
 
     source = "src/repro_torch/kernels/csrc/"
     meta = {"msfp_qdq": (source + "msfp_quant.cu",
@@ -2737,6 +3141,13 @@ def main() -> None:
                           "fleet": {k: v for k, v in gateway["fleet"].items()
                                     if k != "paths"},
                           "wall_s": gateway["wall_s"]},
+                      "lm_families": {
+                          "runs": {k: {f: v for f, v in r.items()
+                                       if f not in ("counts", "shapes")}
+                                   for k, r in families["runs"].items()},
+                          "checks": families["checks"],
+                          "profiles": families["profiles"],
+                          "wall_s": families["wall_s"]},
                       "lm": {"tok_s": lm_serve["tok_s"],
                              "peak_mib": lm_serve["peak_mib"],
                              "launches_per_step":

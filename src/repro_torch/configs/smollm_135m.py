@@ -17,4 +17,4 @@ def full() -> LMConfig:
 def smoke() -> LMConfig:
     return LMConfig("smollm-135m-smoke", n_layers=3, d_model=48, n_heads=3,
                     n_kv=1, d_ff=96, vocab=128, tie_embeddings=True,
-                    head_dim=16, dtype=torch.float32)
+                    head_dim=16, dtype=torch.float32, q_chunk=8)

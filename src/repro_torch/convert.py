@@ -1,8 +1,11 @@
 """Carry the JAX package's state into the port, from numpy.
 
-The JAX package's trees (UNet and LM params, TALoRA hubs, router) are
-nested dicts and lists of arrays keyed exactly as the port's; f32, bf16,
-integer and bool leaves carry over bit for bit. The caller hands them over as
+The JAX package's trees (UNet and LM params of every family, TALoRA hubs,
+router) are nested dicts and lists of arrays keyed exactly as the port's;
+f32, bf16, integer and bool leaves carry over bit for bit, and a packed
+weight (the reference's ``PackedW4``: a 2D pack, a stacked (G, K, N/2)
+one, or an expert stack (G, E, K, N/2), with its keepdims scales) becomes
+the port's ``PackedW4`` with the same bytes. The caller hands them over as
 numpy (``jax.tree.map(np.asarray, tree)``), so the port never imports JAX;
 ``from_numpy_tree`` maps every leaf onto ``device`` and keeps the nesting
 and the keys as they are, so every leaf keeps its ``/``-path (TALoRA hub
@@ -23,11 +26,25 @@ import torch
 from repro_torch.common.device import resolve_device
 
 
+# the fields by which a packed weight is recognised (no JAX type is named)
+PACKED_FIELDS = ("packed", "scale", "zero_point", "exp_bits", "man_bits",
+                 "signed", "shape")
+
+
 def from_numpy_tree(tree: Any, device="cuda") -> Any:
-    """Nested dicts/lists of numpy arrays -> the same tree of tensors."""
+    """Nested dicts/lists of numpy arrays (and packed weights with numpy
+    fields) -> the same tree of tensors (and the port's ``PackedW4``)."""
     dev = resolve_device(device)
 
     def conv(node, path):
+        if all(hasattr(node, f) for f in PACKED_FIELDS):
+            from repro_torch.core.qmodule import PackedW4
+            return PackedW4(conv(node.packed, f"{path}packed/"),
+                            conv(node.scale, f"{path}scale/").float(),
+                            conv(node.zero_point, f"{path}zero_point/")
+                            .float(), int(node.exp_bits),
+                            int(node.man_bits), bool(node.signed),
+                            tuple(int(d) for d in node.shape))
         if isinstance(node, dict):
             return {k: conv(v, f"{path}{k}/") for k, v in node.items()}
         if isinstance(node, (list, tuple)):

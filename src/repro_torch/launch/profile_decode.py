@@ -1,12 +1,13 @@
 """Profile one LM decode step on the card: its wall time, device busy time,
 idle share, CUDA kernel launches and device time by kernel.
 
-    python -m repro_torch.launch.profile_decode [--walls 10]
+    python -m repro_torch.launch.profile_decode [--arch ID] [--walls 10]
 
-The serve configuration of ``launch/serve.py``: smollm-135m in bf16,
-random weights from seed 0 quantized to W4, E2M1 acts at maxval 6 fused
-into every dense site, an FP4 KV cache of 64 slots at batch 8. 32 steps
-fill the cache, then the step at slot 32 is timed ``--walls`` times
+The serve configuration of ``launch/serve.py``: the arch (smollm-135m by
+default; any arch of ``configs/registry.py``) in bf16, random weights
+from seed 0 drawn on the card and quantized to W4, E2M1 acts at maxval 6
+fused into every dense site, an FP4 KV cache of 64 slots at batch 8. 32
+steps fill the cache, then the step at slot 32 is timed ``--walls`` times
 without the profiler (the median is the step's wall; the median of the
 thread's CPU time over the same steps is its host time, which other
 processes on the host's cores do not lengthen) and once under it. The
@@ -14,7 +15,8 @@ idle share is 1 - busy / wall. The last line is the result as JSON.
 
 It uses only the launcher's own building blocks (config, init, quantize,
 decode step), so the same file can also profile an earlier checkout of the
-port: ``PYTHONPATH=<checkout>/src python
+port whose ``lm_init`` draws on the generator's device (one with every
+LM family): ``PYTHONPATH=<checkout>/src python
 src/repro_torch/launch/profile_decode.py``.
 """
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.common.clock import wall_clock
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.launch.steps import make_decode_fn, quantize_lm_for_serving
 from repro_torch.models.lm import init_caches, lm_init
 from repro_torch.quant.calibrate import QuantContext
@@ -44,9 +46,12 @@ def device_us(event) -> float:
 
 def kernel_rows(prof) -> list:
     """The profile's device rows (an aten op's row repeats its kernels'
-    time, so only these are summed), memory copies and sets included."""
+    time, so only these are summed), memory copies and sets included; a
+    ``record_function`` range's device row (its kernels' span) is not
+    one."""
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
             and device_us(e) > 0]
 
 
@@ -60,8 +65,8 @@ def decode_step_profile(cfg, batch: int, slots: int, pos: int,
     Returns the walls (median and least), the host's CPU time and the busy
     time in ms, the idle shares, the kernel launches of the profiled step,
     ms and launches by kernel name, and the profile itself (``prof``)."""
-    p = quantize_lm_for_serving(lm_init(torch.Generator().manual_seed(0),
-                                        cfg, device))
+    p = quantize_lm_for_serving(lm_init(
+        torch.Generator(device=device).manual_seed(0), cfg, device))
     ctx = QuantContext("serve", act_qps={"*": QuantizerParams(
         KIND_FP_SIGNED, 2, 1, 4, torch.tensor(6.0, device=device))})
     step = make_decode_fn(cfg, ctx=ctx)
@@ -102,12 +107,13 @@ def decode_step_profile(cfg, batch: int, slots: int, pos: int,
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="smollm-135m", choices=ARCH_IDS)
     ap.add_argument("--walls", type=int, default=10)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_decode measures the card; torch.cuda is "
                            "not available")
-    cfg = dataclasses.replace(get_config("smollm-135m"), kv_dtype="fp4",
+    cfg = dataclasses.replace(get_config(args.arch), kv_dtype="fp4",
                               dtype=torch.bfloat16)
     batch, slots, pos = 8, 64, 32
     r = decode_step_profile(cfg, batch, slots, pos, torch.device("cuda"),

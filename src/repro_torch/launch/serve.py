@@ -1,16 +1,22 @@
 """LM serving launcher: batched greedy decode with optional W4 weights, W4A4
 act quant and an FP8/FP4 KV cache; port of ``repro.launch.serve``.
 
-Random weights from ``--seed`` (no weights are downloaded), quantized to
-packed W4, a prompt batch prefilled by stepping it through the decode
-step, then ``--gen-len`` greedy tokens. Runs on the card unless
-``--device cpu`` is given.
+Any arch of ``configs/registry.py`` (every LM family: dense, moe, ssm,
+hybrid, audio, vlm). Random weights from ``--seed`` (no weights are
+downloaded), drawn on the run's device (a full-width model is drawn on the
+card in seconds; the CPU and the card therefore draw different weights),
+quantized to packed W4, a prompt batch prefilled by stepping it through
+the decode step, then ``--gen-len`` greedy tokens. Runs on the card
+unless ``--device cpu`` is given.
 
-    python -m repro_torch.launch.serve --arch smollm-135m --quant w4 \\
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --quant w4 \\
         --act-quant fp4 --kv fp4 --batch 8 --prompt-len 32 --gen-len 32
 
-Besides the reference's report lines it prints the dispatch routes
-(``ops.ROUTES``) and the kernel launches per decode step.
+Besides the reference's report lines it prints the arch's parameter
+count, the card's peak memory, the dispatch routes (``ops.ROUTES``) and
+the kernel launches per decode step. ``main(argv, cfg=...)`` serves a
+given config in place of the arch's (the seam ``chip_smoke.py`` cuts a
+model's depth through).
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import torch
 from repro_torch.common.clock import wall_clock
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.registry import ARCH_IDS, get_config
-from repro_torch.kernels import kv4, ops, w4_matmul
+from repro_torch.kernels import kv4, msfp_quant, ops, w4_matmul
 from repro_torch.launch.steps import make_decode_fn, quantize_lm_for_serving
 from repro_torch.models.lm import init_caches, lm_init
 from repro_torch.quant.calibrate import QuantContext
@@ -32,7 +38,8 @@ KERNELS = {"w4a4_matmul": w4_matmul.w4_matmul_2d_cuda,
            "kv4_store": kv4.kv4_store_cuda,
            "kv4_attend": kv4.kv4_attend_cuda,
            "kv4_encode": kv4.kv4_encode_2d_cuda,
-           "kv4_decode": kv4.kv4_decode_2d_cuda}
+           "kv4_decode": kv4.kv4_decode_2d_cuda,
+           "msfp_qdq": msfp_quant.msfp_qdq_2d_cuda}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,13 +75,17 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(argv=None) -> dict:
+def main(argv=None, cfg=None) -> dict:
+    """``cfg``: serve this config in place of ``--arch``'s (its
+    ``kv_dtype`` set from ``--kv``)."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    cfg = dataclasses.replace(get_config(args.arch, smoke=args.smoke),
-                              kv_dtype=args.kv)
+    cfg = dataclasses.replace(
+        cfg or get_config(args.arch, smoke=args.smoke), kv_dtype=args.kv)
     s_max = args.prompt_len + args.gen_len
-    gen = torch.Generator().manual_seed(args.seed)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
 
     params = lm_init(gen, cfg, device)
     if args.quant in ("w4", "w4pc"):
@@ -94,7 +105,12 @@ def main(argv=None) -> dict:
                              torch.tensor(args.act_maxval, device=device))
         ctx = QuantContext("serve", act_qps={"*": qp})
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
-                            generator=gen).to(device)
+                            generator=gen, device=device)
+    # the vlm's patch embeddings, as the reference builds them (decode does
+    # not read them: the vision frontend is item 12c's full-sequence path)
+    extra = (torch.zeros((args.batch, cfg.n_img_tokens, cfg.d_vision),
+                         dtype=cfg.dtype, device=device)
+             if cfg.family == "vlm" else None)
     caches = init_caches(cfg, args.batch, s_max, device)
     dec = make_decode_fn(cfg, ctx=ctx)
 
@@ -124,8 +140,16 @@ def main(argv=None) -> dict:
     if not bool(torch.isfinite(logits.float()).all()):
         raise FloatingPointError("non-finite logits after decode")
     tok_s = args.gen_len * args.batch / max(decode_s, 1e-9)
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
     print(f"arch={cfg.name} quant={args.quant} act={args.act_quant} "
           f"kv={args.kv} device={device}")
+    print(f"params: {cfg.param_count()} ({cfg.active_param_count()} active "
+          f"a token), {cfg.n_layers} layers; max_memory_allocated "
+          + ("-" if peak is None else f"{peak / 2**30:.2f} GiB"))
+    if extra is not None:
+        print(f"vlm patch embeddings {tuple(extra.shape)} built (decode does "
+              "not read them)")
     print(f"prefill: {prefill_s:.2f}s  decode: {decode_s:.2f}s "
           f"({tok_s:.1f} tok/s)")
     print("sample ids:", gen_ids[0][:16].tolist())
@@ -136,7 +160,8 @@ def main(argv=None) -> dict:
           + ", ".join(f"{k}={v:g}" for k, v in per_step.items()))
     return {"prefill_s": prefill_s, "decode_s": decode_s, "tok_s": tok_s,
             "tokens": gen_ids, "logits": logits, "launches_per_step": per_step,
-            "steps": args.prompt_len + args.gen_len}
+            "steps": args.prompt_len + args.gen_len, "peak_bytes": peak,
+            "params": cfg.param_count()}
 
 
 if __name__ == "__main__":

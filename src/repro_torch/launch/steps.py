@@ -9,9 +9,11 @@ import re
 import torch
 
 from repro_torch.common.tree import flatten_paths, unflatten_paths
-from repro_torch.core.qmodule import pack_weight
+from repro_torch.core.qmodule import (PackedW4, encode_codes,
+                                      pack_nibbles, pack_weight)
 from repro_torch.models.lm import LMConfig, decode_step
 from repro_torch.quant.fakequant import KIND_FP_SIGNED, QuantizerParams
+from repro_torch.quant.search import search_weight_params
 
 # Weights quantized for W4 serving (embed/lm_head stay high precision:
 # the paper's io-layer convention).
@@ -57,30 +59,56 @@ def make_decode_fn(cfg: LMConfig, ctx=None):
     return serve_step
 
 
+def _pack_stacked(leaf: torch.Tensor, qp: QuantizerParams) -> PackedW4:
+    """``pack_weight`` of a stacked (G, ..., K, N) weight under its
+    (G, 1, ..., 1) or (G, 1, ..., N) maxvals, encoded one (K, N) slice at
+    a time: the bytes are the whole tensor's (the encode is elementwise),
+    and the f32 temporaries are a slice's, not the stack's (an expert
+    stack of llama4-scout is 2.7 G values a layer)."""
+    fmt = qp.fmt
+    mv = qp.maxval.to(leaf.device)
+    zp = qp.zero_point.to(leaf.device)
+    k, n = leaf.shape[-2:]
+    packed = torch.empty((*leaf.shape[:-1], n // 2), dtype=torch.uint8,
+                         device=leaf.device)
+    flat_w = leaf.reshape(-1, k, n)
+    flat_mv = mv.expand(*leaf.shape[:-2], *mv.shape[-2:]).reshape(
+        -1, *mv.shape[-2:])
+    flat_out = packed.view(-1, k, n // 2)
+    for i in range(flat_w.shape[0]):
+        flat_out[i] = pack_nibbles(encode_codes(flat_w[i], fmt, flat_mv[i],
+                                                zp))
+    return PackedW4(packed, mv.clone(), torch.broadcast_to(zp, mv.shape)
+                    .clone(), fmt.exp_bits, fmt.man_bits, fmt.signed,
+                    tuple(leaf.shape))
+
+
 def quantize_lm_for_serving(params, bits: int = 4, *, searched: bool = False,
                             per_channel: bool = False):
-    """Pack the quantizable LM weights to signed E2M1 W4 with absmax scales.
+    """Pack the quantizable LM weights to W4.
 
-    2D weights get one scale (``per_channel``: one per output column, the
-    grid maximum refit per column); stacked (G, ..., N) weights one per
-    slice, (G, 1, ..., 1), or per (slice, column), (G, 1, ..., N). The
-    bytes, scales and their types are the reference's for bf16 and f32
-    leaves (its type promotions are spelled out). ``searched=True`` (the
-    LM weights through item 10's MSE search, ``quant/search.py``) is
-    ROADMAP Queue A item 12b."""
-    if searched:
-        raise NotImplementedError("searched LM formats (quant/search.py, "
-                                  "ROADMAP Queue A item 10) are item 12b")
+    A 2D weight gets one scale: signed E2M1 at its absmax, or with
+    ``searched`` the paper's MSE search (``quant/search.py:
+    search_weight_params``, format and maxval); ``per_channel`` keeps that
+    format and refits the grid maximum per output column. Stacked
+    (G, ..., N) weights take signed E2M1 absmax scales whatever
+    ``searched`` says, as the reference does: one per slice, (G, 1, ...,
+    1), or per (slice, column), (G, 1, ..., N). The bytes, scales and
+    their types are the reference's for bf16 and f32 leaves (its type
+    promotions are spelled out)."""
     out = {}
     for path, leaf in flatten_paths(params).items():
         if not (QUANT_WEIGHT_RE.search(path) and isinstance(leaf, torch.Tensor)
                 and leaf.ndim >= 2 and leaf.shape[-1] % 2 == 0):
             out[path] = leaf
             continue
-        a = leaf.abs()
         if leaf.ndim == 2:
-            qp = QuantizerParams(KIND_FP_SIGNED, 2, 1, bits,
-                                 a.max().to(torch.float32))
+            a = leaf.abs()
+            if searched:
+                qp = search_weight_params(leaf, bits).params
+            else:
+                qp = QuantizerParams(KIND_FP_SIGNED, 2, 1, bits,
+                                     a.max().to(torch.float32))
             if per_channel:
                 absmax = a.max().clamp_min(1e-8)
                 col = a.amax(0).clamp_min(1e-8)
@@ -88,10 +116,10 @@ def quantize_lm_for_serving(params, bits: int = 4, *, searched: bool = False,
                 ratio = qp.maxval / absmax.to(torch.float32)
                 qp = dataclasses.replace(qp, maxval=col.to(torch.float32)
                                          * ratio)
+            out[path] = pack_weight(leaf, qp)
         else:
             red = tuple(range(1, leaf.ndim - (1 if per_channel else 0)))
-            mv = a.amax(red, keepdim=True).clamp_min(1e-8)
-            qp = QuantizerParams(KIND_FP_SIGNED, 2, 1, bits,
-                                 mv.to(torch.float32))
-        out[path] = pack_weight(leaf, qp)
+            mv = leaf.abs().amax(red, keepdim=True).clamp_min(1e-8)
+            out[path] = _pack_stacked(leaf, QuantizerParams(
+                KIND_FP_SIGNED, 2, 1, bits, mv.to(torch.float32)))
     return unflatten_paths(out)

@@ -1,20 +1,27 @@
-"""LM decode for the dense family; port of the serving part of
-``repro.models.lm``.
+"""Unified LM family (dense / GQA / MoE / SSM / hybrid / audio / vlm):
+the serving part of ``repro.models.lm``, ported.
 
 The parameter tree is the reference's: ``embed``, ``final_norm``,
-optional ``lm_head``, and ``blocks``, a list with one entry per position of
-``layer_pattern``, each a tree of tensors stacked over ``n_groups`` (the
-reference scans over that axis). ``decode_step`` loops over the groups
-instead, and hands each layer its slice: a stacked ``PackedW4`` becomes the
-layer's 2D pack with a scalar (or per-output-channel) scale, so every
-dense site runs the fused W4A4 kernel K2, never the stacked-pack oracle.
-Caches are stacked the same way and written in place.
+optional ``lm_head``, ``vision_proj`` (vlm), ``dense_{i}`` for the
+``first_k_dense`` leading layers, ``blocks`` (a list with one entry per
+position of ``layer_pattern``, each a tree stacked over ``n_groups``; the
+reference scans over that axis) and ``shared_attn`` (zamba2's block,
+applied after each group with the same weights). ``decode_step`` loops
+over the groups instead, and hands each layer its slice: a stacked
+``PackedW4`` becomes the layer's 2D pack (an expert stack, E of them)
+with a scalar (or per-output-channel) scale, so every dense site runs the
+fused W4A4 kernel K2 and every expert product K2's weight-only mode,
+never the stacked-pack oracle. Caches (KV, SSM state and conv buffer,
+and the shared block's KV cache per group) are stacked the same way and
+written in place.
 
-Dense family only: sliding-window ring slots, ``scale_embed``, sinusoidal
-positions, the logit softcap and ``qkv_bias`` are here; the
-moe, ssm, hybrid and vlm families, ``first_k_dense`` and
-``shared_attn_every`` raise ``NotImplementedError`` (ROADMAP Queue A
-item 12), as do ``forward``/``loss_fn`` (the training slice).
+Ported: decode for every family, with sliding-window ring slots,
+``scale_embed``, sinusoidal positions, the logit softcap and
+``qkv_bias``. ``forward``/``loss_fn`` (the full-sequence prefill and the
+training slice) are ROADMAP Queue A item 12c; the config carries the
+fields only they read (``remat``, ``unroll``, ``q_chunk``, ``moe_impl``,
+``qk_norm``) so that a config converts field for field, and nothing here
+acts on them.
 """
 from __future__ import annotations
 
@@ -28,20 +35,22 @@ from repro_torch.core.qmodule import PackedW4
 from repro_torch.kernels import ops
 from repro_torch.nn.attention import (AttnConfig, attn_decode, attn_init,
                                       kv_cache_spec)
-from repro_torch.nn.embeddings import (rope_frequencies,
-                                       timestep_embedding)
+from repro_torch.nn.embeddings import timestep_embedding
 from repro_torch.nn.layers import (dense_apply, dense_init, rmsnorm_apply,
                                    rmsnorm_init)
 from repro_torch.nn.mlp import mlp_apply, mlp_init
+from repro_torch.nn.moe import MoEConfig, moe_apply, moe_init
+from repro_torch.nn.ssm import (SSMConfig, ssm_decode, ssm_init,
+                                ssm_state_spec)
 
-ATTN = "attn"
+ATTN, SSM = "attn", "ssm"
+SHARED_THETA = 10_000.0      # the shared attention block's rope theta
 
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """The reference's ``LMConfig`` fields that decode reads (``family``,
-    ``first_k_dense`` and ``shared_attn_every`` only to refuse what is not
-    ported); ``dtype`` is a torch dtype."""
+    """The reference's ``LMConfig``, field for field; ``dtype`` is a torch
+    dtype."""
     name: str
     n_layers: int
     d_model: int
@@ -49,18 +58,39 @@ class LMConfig:
     n_kv: int
     d_ff: int
     vocab: int
-    family: str = "dense"
+    family: str = "dense"            # dense|moe|ssm|hybrid|audio|vlm
     head_dim: int | None = None
     qkv_bias: bool = False
+    qk_norm: bool = False
     mlp_kind: str = "swiglu"         # swiglu | geglu | gelu
     pos: str = "rope"                # rope | sinusoidal
     scale_embed: bool = False        # gemma: h *= sqrt(d_model)
     tie_embeddings: bool = False
     # depth pattern, period P entries of (kind, window|None, rope_theta)
     layer_pattern: tuple = ((ATTN, None, 10_000.0),)
+    # --- moe ---
+    moe_impl: str = "global"         # global | ep (item 13 ports ep)
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    n_shared: int = 0
     first_k_dense: int = 0
-    shared_attn_every: int = 0
+    capacity_factor: float = 1.25
+    # --- ssm ---
+    ssm_d_state: int = 0
+    ssm_headdim: int = 64
+    ssm_n_groups: int = 1
+    ssm_chunk: int = 256
+    # --- hybrid (zamba2) ---
+    shared_attn_every: int = 0       # the shared attn block every k layers
+    # --- vlm / audio stubs ---
+    n_img_tokens: int = 0
+    d_vision: int = 0
+    # --- execution ---
     dtype: Any = torch.bfloat16
+    remat: bool = True
+    unroll: bool = False
+    q_chunk: int = 512
     kv_dtype: str = "bf16"           # bf16 | fp8 | fp4  (serving KV cache)
     logits_softcap: float | None = None
 
@@ -72,108 +102,258 @@ class LMConfig:
     def period(self) -> int:
         return len(self.layer_pattern)
 
-    @property
-    def n_groups(self) -> int:
-        n = self.n_layers - self.first_k_dense
-        if n % self.period:
-            raise ValueError(f"{self.name}: {n} scanned layers are not a "
-                             f"multiple of the pattern period {self.period}")
-        return n // self.period
-
     def attn_cfg(self, window, theta) -> AttnConfig:
         return AttnConfig(self.d_model, self.n_heads, self.n_kv, self.hd,
                           qkv_bias=self.qkv_bias, rope_theta=theta,
                           window=window, use_rope=(self.pos == "rope"))
 
+    def ssm_cfg(self) -> SSMConfig:
+        return SSMConfig(self.d_model, self.ssm_d_state, self.ssm_headdim,
+                         2, self.ssm_n_groups, 4, self.ssm_chunk)
 
-def check_supported(cfg: LMConfig) -> None:
-    """Raise for what the port's LM slice does not run yet."""
-    missing = []
-    if cfg.family != "dense":
-        missing.append(f"family {cfg.family!r}")
-    if cfg.first_k_dense:
-        missing.append("first_k_dense")
-    if cfg.shared_attn_every:
-        missing.append("shared_attn_every")
-    if any(kind != ATTN for kind, _, _ in cfg.layer_pattern):
-        missing.append("ssm layers")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (the port runs "
-            f"the dense family; the rest is ROADMAP Queue A item 12)")
+    def moe_cfg(self) -> MoEConfig:
+        return MoEConfig(self.d_model, self.moe_d_ff, self.n_experts,
+                         self.top_k, self.n_shared, self.capacity_factor)
+
+    @property
+    def n_scanned(self) -> int:
+        return self.n_layers - self.first_k_dense
+
+    @property
+    def n_groups(self) -> int:
+        if self.n_scanned % self.period:
+            raise ValueError(f"{self.name}: {self.n_scanned} scanned layers "
+                             f"are not a multiple of the pattern period "
+                             f"{self.period}")
+        return self.n_scanned // self.period
+
+    def param_count(self) -> int:
+        """Analytic parameter count (the reference's, for 6ND math)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        per_attn = (d * (self.n_heads + 2 * self.n_kv) * self.hd
+                    + self.n_heads * self.hd * d)
+        per_mlp = (3 if self.mlp_kind in ("swiglu", "geglu") else 2) * d * f
+        per_moe = (self.n_experts * 3 * d * self.moe_d_ff
+                   + self.n_shared * 3 * d * self.moe_d_ff
+                   + d * self.n_experts)
+        ssm = self.ssm_cfg()
+        per_ssm = (d * (2 * ssm.d_inner + 2 * ssm.n_groups * ssm.d_state
+                        + ssm.n_heads)
+                   + ssm.d_inner * d + ssm.conv_dim * 4)
+        total = v * d * (1 if self.tie_embeddings else 2)
+        for i in range(self.n_layers):
+            kind = (self.layer_pattern[(max(0, i - self.first_k_dense))
+                                       % self.period][0]
+                    if i >= self.first_k_dense else ATTN)
+            if kind == SSM:
+                total += per_ssm
+            else:
+                total += per_attn
+                if self.family == "moe" and i >= self.first_k_dense:
+                    total += per_moe
+                elif i < self.first_k_dense:
+                    total += 3 * d * (f or 4 * d)
+                elif self.d_ff:
+                    total += per_mlp
+        if self.shared_attn_every:
+            total += per_attn + (per_mlp if self.d_ff else 0)
+        return total
+
+    def active_param_count(self) -> int:
+        """Per-token active params (MoE: top_k + shared experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
+        per_moe_all = (self.n_experts * 3 * d * self.moe_d_ff
+                       + self.n_shared * 3 * d * self.moe_d_ff
+                       + d * self.n_experts)
+        per_moe_act = ((self.top_k + self.n_shared) * 3 * d * self.moe_d_ff
+                       + d * self.n_experts)
+        n_moe_layers = self.n_layers - self.first_k_dense
+        return self.param_count() - n_moe_layers * (per_moe_all - per_moe_act)
 
 
-def _block_init(gen, cfg: LMConfig, window, theta, device) -> dict:
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _block_init(gen, cfg: LMConfig, kind: str, window, theta, device
+                ) -> dict:
     kw = dict(device=device, dtype=cfg.dtype)
+    if kind == SSM:
+        return {"ln1": rmsnorm_init(cfg.d_model, **kw),
+                "ssm": ssm_init(gen, cfg.ssm_cfg(), **kw)}
     p = {"ln1": rmsnorm_init(cfg.d_model, **kw),
          "attn": attn_init(gen, cfg.attn_cfg(window, theta), **kw),
          "ln2": rmsnorm_init(cfg.d_model, **kw)}
-    if cfg.d_ff:
+    if cfg.family == "moe":
+        p["moe"] = moe_init(gen, cfg.moe_cfg(), **kw)
+    elif cfg.d_ff:
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, **kw)
     return p
 
 
-def _stack(trees: list) -> Any:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stacked(make, n: int) -> Any:
+    """``n`` trees from ``make()`` (called in order) stacked leaf by leaf
+    into (n, ...) tensors, each tree copied in as it is made: the device
+    holds the stack and one layer's tree, never n trees and the stack."""
+    out = None
+
+    def put(dst, src, g):
+        if isinstance(src, dict):
+            for k in src:
+                put(dst[k], src[k], g)
+        else:
+            dst[g].copy_(src)
+
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+
+    for g in range(n):
+        tree = make()
+        if out is None:
+            out = alloc(tree)
+        put(out, tree, g)
+        del tree        # before the next make(): one layer's tree at a time
+    return out
 
 
 def lm_init(gen: torch.Generator, cfg: LMConfig, device="cpu") -> dict:
-    """Random parameters from ``gen`` in the reference's tree layout (the
-    numbers differ from ``jax.random``'s; tests carry the reference's
-    trees over with ``convert.from_numpy_tree``)."""
-    check_supported(cfg)
+    """Random parameters from ``gen`` (drawn on ``gen``'s device, then
+    moved to ``device``) in the reference's tree layout and leaf order
+    (the numbers differ from ``jax.random``'s; tests carry the port's
+    trees over to the reference). A generator on the card draws a
+    full-width model there in a fraction of the host's time."""
+    kw = dict(device=device, dtype=cfg.dtype)
     p: dict[str, Any] = {
-        "embed": (torch.randn((cfg.vocab, cfg.d_model), generator=gen)
-                  * 0.02).to(device=device, dtype=cfg.dtype),
-        "final_norm": rmsnorm_init(cfg.d_model, cfg.dtype, device),
-    }
+        "embed": (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                              device=gen.device) * 0.02).to(**kw),
+        "final_norm": rmsnorm_init(cfg.d_model, **kw)}
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, device=device,
-                                  dtype=cfg.dtype)
+        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, **kw)
+    if cfg.family == "vlm":
+        p["vision_proj"] = dense_init(gen, cfg.d_vision, cfg.d_model,
+                                      bias=True, **kw)
+    for i in range(cfg.first_k_dense):
+        # leading dense layers (kimi-k2, gemma3): unscanned attn + MLP
+        p[f"dense_{i}"] = {
+            "ln1": rmsnorm_init(cfg.d_model, **kw),
+            "attn": attn_init(gen, cfg.attn_cfg(*cfg.layer_pattern[0][1:]),
+                              **kw),
+            "ln2": rmsnorm_init(cfg.d_model, **kw),
+            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff or 4 * cfg.d_model,
+                            cfg.mlp_kind, **kw)}
     p["blocks"] = [
-        _stack([_block_init(gen, cfg, window, theta, device)
-                for _ in range(cfg.n_groups)])
-        for _, window, theta in cfg.layer_pattern]
+        _stacked(lambda: _block_init(gen, cfg, kind, window, theta, device),
+                 cfg.n_groups)
+        for kind, window, theta in cfg.layer_pattern]
+    if cfg.shared_attn_every:
+        # zamba2: one shared transformer block, reused after every group
+        sp = {"ln": rmsnorm_init(cfg.d_model, **kw),
+              "attn": attn_init(gen, cfg.attn_cfg(None, SHARED_THETA), **kw)}
+        if cfg.d_ff:
+            sp["ln2"] = rmsnorm_init(cfg.d_model, **kw)
+            sp["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
+                                 **kw)
+        p["shared_attn"] = sp
     return p
 
 
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def _stack_spec(per: dict, n: int) -> dict:
+    return {k: dict(shape=(n, *v["shape"]), dtype=v["dtype"])
+            for k, v in per.items()}
+
+
 def cache_specs(cfg: LMConfig, batch: int, s_max: int) -> dict:
-    """Shape/dtype of every cache tensor, stacked over groups; windowed
-    layers keep a ring of ``min(s_max, window)`` slots."""
-    check_supported(cfg)
+    """Shape/dtype of every cache tensor: per pattern position a KV cache
+    (windowed layers a ring of ``min(s_max, window)`` slots) or an SSM
+    state and conv buffer, stacked over groups; ``dense_{i}`` a full KV
+    cache each; ``shared`` one KV cache per group (zamba2 shares the
+    attention weights, not the caches)."""
     specs: dict[str, Any] = {"blocks": []}
-    for _, window, theta in cfg.layer_pattern:
-        s_eff = min(s_max, window) if window else s_max
-        per = kv_cache_spec(batch, s_eff, cfg.attn_cfg(window, theta),
-                            cfg.kv_dtype)
-        specs["blocks"].append({
-            k: dict(shape=(cfg.n_groups, *v["shape"]), dtype=v["dtype"])
-            for k, v in per.items()})
+    for kind, window, theta in cfg.layer_pattern:
+        if kind == SSM:
+            per = ssm_state_spec(batch, cfg.ssm_cfg())
+        else:
+            s_eff = min(s_max, window) if window else s_max
+            per = kv_cache_spec(batch, s_eff, cfg.attn_cfg(window, theta),
+                                cfg.kv_dtype)
+        specs["blocks"].append(_stack_spec(per, cfg.n_groups))
+    for i in range(cfg.first_k_dense):
+        specs[f"dense_{i}"] = kv_cache_spec(
+            batch, s_max, cfg.attn_cfg(*cfg.layer_pattern[0][1:]),
+            cfg.kv_dtype)
+    if cfg.shared_attn_every:
+        specs["shared"] = _stack_spec(
+            kv_cache_spec(batch, s_max, cfg.attn_cfg(None, SHARED_THETA),
+                          cfg.kv_dtype), cfg.n_groups)
     return specs
 
 
 def init_caches(cfg: LMConfig, batch: int, s_max: int, device="cpu") -> dict:
-    return {"blocks": [
-        {k: torch.zeros(v["shape"], dtype=v["dtype"], device=device)
-         for k, v in per.items()}
-        for per in cache_specs(cfg, batch, s_max)["blocks"]]}
+    def make(spec):
+        if isinstance(spec, dict) and "shape" in spec:
+            return torch.zeros(spec["shape"], dtype=spec["dtype"],
+                               device=device)
+        if isinstance(spec, dict):
+            return {k: make(v) for k, v in spec.items()}
+        return [make(s) for s in spec]
+
+    return make(cache_specs(cfg, batch, s_max))
+
+
+# ---------------------------------------------------------------------------
+# decode (serving)
+# ---------------------------------------------------------------------------
 
 
 def _slice(tree: Any, g: int) -> Any:
-    """Group ``g`` of a stacked tree; a stacked pack becomes the layer's
-    2D pack with a scalar or (N,) scale (what K2 takes)."""
+    """Group ``g`` of a stacked tree. A stacked pack (G, K, N/2) becomes
+    the layer's 2D pack with its scale and zero-point flattened to a
+    scalar or an (N,) vector (what K2 takes); an expert stack (G, E, K,
+    N/2) becomes the layer's (E, K, N/2) pack with the group's keepdims
+    (1, 1, 1|N) scale, which ``moe.expert_packs`` splits into E 2D packs
+    sharing it."""
     if isinstance(tree, dict):
         return {k: _slice(v, g) for k, v in tree.items()}
     if isinstance(tree, PackedW4):
-        scale = tree.scale[g].reshape(-1)
-        zp = tree.zero_point[g].reshape(-1)
-        if scale.numel() == 1:
-            scale, zp = scale.reshape(()), zp.reshape(())
+        scale, zp = tree.scale[g], tree.zero_point[g]
+        if tree.packed.ndim == 3:
+            scale, zp = scale.reshape(-1), zp.reshape(-1)
+            if scale.numel() == 1:
+                scale, zp = scale.reshape(()), zp.reshape(())
         return dataclasses.replace(tree, packed=tree.packed[g], scale=scale,
                                    zero_point=zp, shape=tuple(tree.shape[1:]))
     return tree[g]
+
+
+def _attn_mlp(bp: dict, h, cache: dict, store_pos: int, valid_len: int,
+              rot, acfg: AttnConfig, cfg: LMConfig, *, ctx, site: str,
+              attn_site: str | None = None, ln: str = "ln1"):
+    """Pre-norm attention decode (at ``attn_site``, ``{site}/attn`` by
+    default), then the block's MoE or MLP, each as a residual."""
+    x = rmsnorm_apply(bp[ln], h)
+    x, _ = attn_decode(bp["attn"], x, cache, store_pos, valid_len, *rot,
+                       acfg, kv_dtype=cfg.kv_dtype, ctx=ctx,
+                       site=attn_site or f"{site}/attn")
+    h = h + x
+    if "moe" in bp:
+        x = rmsnorm_apply(bp["ln2"], h)
+        h = h + moe_apply(bp["moe"], x, cfg.moe_cfg(), ctx=ctx,
+                          site=f"{site}/moe")
+    elif "mlp" in bp:
+        x = rmsnorm_apply(bp["ln2"], h)
+        h = h + mlp_apply(bp["mlp"], x, cfg.mlp_kind, ctx=ctx,
+                          site=f"{site}/mlp")
+    return h
 
 
 def decode_step(p: dict, cfg: LMConfig, caches: dict, token: torch.Tensor,
@@ -181,7 +361,6 @@ def decode_step(p: dict, cfg: LMConfig, caches: dict, token: torch.Tensor,
     """One decode step. token: (B, 1) ids; pos: the absolute position (a
     Python int, so no step reads the device). Returns (logits
     (B, 1, vocab), caches), the caches updated in place."""
-    check_supported(cfg)
     dev = token.device
     h = p["embed"][token].to(cfg.dtype)
     if cfg.scale_embed:
@@ -190,29 +369,52 @@ def decode_step(p: dict, cfg: LMConfig, caches: dict, token: torch.Tensor,
     if cfg.pos == "sinusoidal":
         t = torch.tensor([float(pos)], device=dev)
         h = h + timestep_embedding(t, cfg.d_model)[None].to(cfg.dtype)
-    # cos/sin (1, hd/2) of the absolute position: the last row of the table
-    rot = {theta: tuple(t[pos:] for t in rope_frequencies(
-        cfg.hd, pos + 1, theta, device=dev))
-        for _, _, theta in cfg.layer_pattern}
+
+    rots: dict[float, tuple] = {}
+
+    def rot(theta):
+        """cos/sin (1, hd/2) at the absolute position (the reference's
+        decode-time rotation, which equals the RoPE table's row)."""
+        if theta not in rots:
+            ar = torch.arange(0, cfg.hd, 2, dtype=torch.float32, device=dev)
+            ang = float(pos) * (1.0 / (theta ** (ar / cfg.hd)))
+            rots[theta] = (torch.cos(ang)[None], torch.sin(ang)[None])
+        return rots[theta]
+
+    for i in range(cfg.first_k_dense):
+        # the reference decodes these over the whole cache, with no window
+        _, window, theta = cfg.layer_pattern[0]
+        h = _attn_mlp(p[f"dense_{i}"], h, caches[f"dense_{i}"], pos, pos + 1,
+                      rot(theta), cfg.attn_cfg(window, theta), cfg, ctx=ctx,
+                      site="dense_block")
+
     for g in range(cfg.n_groups):
-        for pos_i, (_, window, theta) in enumerate(cfg.layer_pattern):
+        for pos_i, (kind, window, theta) in enumerate(cfg.layer_pattern):
             bp = _slice(p["blocks"][pos_i], g)
             cache = _slice(caches["blocks"][pos_i], g)
             site = f"block_p{pos_i}"
-            acfg = cfg.attn_cfg(None, theta)   # ring slots need no mask
+            if kind == SSM:
+                x = rmsnorm_apply(bp["ln1"], h)
+                x, _ = ssm_decode(bp["ssm"], x, cache, cfg.ssm_cfg(), ctx=ctx,
+                                  site=f"{site}/ssm")
+                h = h + x
+                continue
+            # windowed layers keep a ring of ``window`` slots, which needs
+            # no mask
             if window:
                 store_pos, valid_len = pos % window, min(pos + 1, window)
             else:
                 store_pos, valid_len = pos, pos + 1
-            x = rmsnorm_apply(bp["ln1"], h)
-            x, _ = attn_decode(bp["attn"], x, cache, store_pos, valid_len,
-                               *rot[theta], acfg, kv_dtype=cfg.kv_dtype,
-                               ctx=ctx, site=f"{site}/attn")
-            h = h + x
-            if "mlp" in bp:
-                x = rmsnorm_apply(bp["ln2"], h)
-                h = h + mlp_apply(bp["mlp"], x, cfg.mlp_kind, ctx=ctx,
-                                  site=f"{site}/mlp")
+            h = _attn_mlp(bp, h, cache, store_pos, valid_len, rot(theta),
+                          cfg.attn_cfg(None, theta), cfg, ctx=ctx, site=site)
+        if cfg.shared_attn_every:
+            # zamba2: shared weights, this group's own KV cache
+            h = _attn_mlp(p["shared_attn"], h, _slice(caches["shared"], g),
+                          pos, pos + 1, rot(SHARED_THETA),
+                          cfg.attn_cfg(None, SHARED_THETA), cfg, ctx=ctx,
+                          site="shared_attn", attn_site="shared_attn",
+                          ln="ln")
+
     h = rmsnorm_apply(p["final_norm"], h)
     if cfg.tie_embeddings:
         logits = ops.tied_logits(h, p["embed"])

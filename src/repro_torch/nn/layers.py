@@ -25,7 +25,7 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
                bias: bool = False, scale: float | None = None,
                device="cpu", dtype=torch.float32) -> dict:
     scale = scale if scale is not None else d_in ** -0.5
-    w = torch.randn((d_in, d_out), generator=gen) * scale
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device) * scale
     p = {"w": w.to(device=device, dtype=dtype)}
     if bias:
         p["b"] = torch.zeros((d_out,), device=device, dtype=dtype)

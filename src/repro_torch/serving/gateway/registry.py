@@ -11,9 +11,7 @@ so this layer never imports model/launch code.
 
 ``default_entries()`` ships the two-model development pair every smoke /
 bench run uses: the tiny diffusion preset plus the smollm smoke LM. LM
-entries must name an arch the port runs (``configs.registry.list_models``;
-an arch of the reference's registry not ported yet raises
-``NotImplementedError`` naming ROADMAP Queue A item 12b); diffusion
+entries name an arch of ``configs.registry.list_models``; diffusion
 entries name a ``DIFFUSION_PRESETS`` key.
 """
 from __future__ import annotations
@@ -21,8 +19,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs.diffusion_presets import DIFFUSION_PRESETS
-from repro_torch.configs.registry import (PENDING_ARCHS, list_models,
-                                          require_ported)
+from repro_torch.configs.registry import list_models
 from repro_torch.serving.traffic.metrics import SLO
 
 FAMILIES = ("diffusion", "lm")
@@ -53,8 +50,6 @@ class ModelEntry:
                 raise ValueError(
                     f"{self.name}: unknown diffusion preset "
                     f"{self.config!r} (known: {sorted(DIFFUSION_PRESETS)})")
-        elif self.config in PENDING_ARCHS:
-            require_ported(self.config)        # NotImplementedError
         elif self.config not in list_models():
             raise ValueError(f"{self.name}: unknown LM arch "
                              f"{self.config!r} (known: {list_models()})")

@@ -50,8 +50,7 @@ from repro.serving.gateway import ServingGateway as JGateway
 from repro.serving.gateway import default_entries as j_default_entries
 from repro_torch.common.tree import flatten_paths
 from repro_torch.configs.diffusion_presets import tiny_ddim
-from repro_torch.configs.registry import (PENDING_ARCHS, get_config,
-                                          list_models)
+from repro_torch.configs.registry import get_config, list_models
 from repro_torch.convert import from_numpy_tree
 from repro_torch.diffusion.schedule import make_schedule
 from repro_torch.launch import serve_gateway
@@ -152,18 +151,21 @@ def test_configs_registry_exposes_models():
 
 
 def test_registry_refuses_unported_archs_naming_item_12b():
-    """Every arch of the reference's registry is either run by the port or
-    refused as not ported yet (ROADMAP Queue A item 12b) — by the model
-    entry and by ``get_config`` — never called unknown; the reference's
-    own entries carry over unchanged."""
-    assert sorted(list_models() + list(PENDING_ARCHS)) == j_list_models()
-    for arch in PENDING_ARCHS:
+    """(The name is kept from the refusal this test held before every arch
+    was ported.) The port's arch registry lists exactly the reference's;
+    a model entry naming any of them validates and its config is the
+    arch's; an unknown arch is refused by the entry and by ``get_config``;
+    the reference's own entries carry over unchanged."""
+    assert list_models() == j_list_models()
+    for arch in list_models():
         entry = ModelEntry(name=arch, family="lm", config=arch)
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            entry.validate()
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            get_config(arch)
-    with pytest.raises(KeyError, match="unknown arch"):
+        entry.validate()
+        assert get_config(arch).name == get_config(arch, smoke=False).name
+        assert get_config(arch, smoke=True).n_layers <= \
+            get_config(arch).n_layers
+    with pytest.raises(ValueError, match="unknown LM arch"):
+        ModelEntry(name="x", family="lm", config="nope").validate()
+    with pytest.raises(KeyError):
         get_config("nope")
     assert [dataclasses.asdict(e) for e in default_entries()] == \
         [dataclasses.asdict(e) for e in j_default_entries()]
@@ -381,6 +383,25 @@ def test_lm_engine_deterministic_and_deadline_expiry():
     rid = eng.submit(steps=2, seed=0, arrival=0.0, deadline=-1.0)
     res = eng.run()
     assert res[rid].expired and res[rid].x0 is None
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-370m",
+                                  "llama4-scout-17b-a16e", "gemma3-4b"])
+def test_lm_engine_serves_every_family(arch):
+    """The gateway's LM adapter on a hybrid, an ssm, a moe and a
+    first_k_dense arch (smoke configs, W4 packed by the bank's build):
+    each request's caches come from ``init_caches`` (SSM state, conv
+    buffer, the shared block's per-group KV cache) and go with it."""
+    cfg = get_config(arch, smoke=True)
+    params = lm_init(torch.Generator().manual_seed(0), cfg)
+    bank = WeightBank(params, None, {}, None, None, 1, max_cached=1,
+                      build_fn=quantize_lm_for_serving, device="cpu")
+    eng = LMServingEngine(cfg, bank, max_batch=2, prompt_len=3, device="cpu")
+    r0, r1 = eng.submit(steps=3, seed=1), eng.submit(steps=2, seed=2)
+    res = eng.run()
+    assert res[r0].x0.shape == (3,) and res[r1].x0.shape == (2,)
+    assert res[r0].state.caches is None
+    assert ModelEntry(name=arch, family="lm", config=arch).validate() is None
 
 
 def test_decode_state_steps_left_counts_prefill():

@@ -285,6 +285,109 @@ def test_lm_decode_on_card_matches_cpu(cuda, kv, act, dt):
         assert rel <= 2e-2, float(rel)
 
 
+# smoke configs of the families phase 12 of chip_smoke.py serves at full
+# width: hybrid (SSM layers, the shared block's KV cache per group), moe
+# (every expert product on K2's weight-only mode), gemma3 (first_k_dense,
+# ring slots, an untied head behind K1)
+FAMILY_ARCHS = ["zamba2-2.7b", "llama4-scout-17b-a16e", "gemma3-4b"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_decode_on_card_matches_cpu(cuda, arch, dt):
+    """The arch's smoke config over packed ``dyadic_weights``, E2M1 acts
+    fused into K2, an FP4 cache: 6 teacher-forced steps on the card (the
+    kernels) vs the CPU (their plain versions), both in torch; on the card
+    only kernel routes and the plain products the reference computes
+    outside any kernel (the untied head's and the router's f32 products)
+    run. Tolerance: f32, max abs error <= 1e-4 * max |logit| per step and
+    the same argmax; bf16, relative Frobenius error <= 2e-2."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(arch, smoke=True), kv_dtype="fp4",
+                              dtype=dt)
+    params = quantize_lm_for_serving(dyadic_weights(lm_init(
+        torch.Generator().manual_seed(5), cfg)))
+    toks = torch.randint(0, cfg.vocab, (3, 6),
+                         generator=torch.Generator().manual_seed(6))
+
+    def run(dev):
+        ctx = QuantContext("serve", act_qps={"*": QuantizerParams(
+            0, 2, 1, 4, torch.tensor(6.0, device=dev))})
+        p, step = _tree_to(params, dev), make_decode_fn(cfg, ctx=ctx)
+        caches = init_caches(cfg, 3, 6, dev)
+        return torch.stack([step(p, caches, toks[:, i:i + 1].to(dev), i)[0]
+                            .cpu() for i in range(6)]).float()
+
+    ops.reset_routes()
+    got = run(cuda)
+    assert {r for (_, r) in ops.ROUTES} <= {"cuda", "torch", "torch_f32"}, \
+        dict(ops.ROUTES)
+    if cfg.family == "moe":
+        assert ops.ROUTES[("w4_matmul", "cuda")] == \
+            6 * 3 * cfg.n_experts * cfg.n_layers
+    want = run(torch.device("cpu"))
+    if dt == torch.float32:
+        scale = want.abs().amax((1, 2, 3))
+        assert ((got - want).abs().amax((1, 2, 3)) <= 1e-4 * scale).all()
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+    else:
+        rel = torch.linalg.norm(got - want) / torch.linalg.norm(want)
+        assert rel <= 2e-2, float(rel)
+
+
+# (n_kv, G, hd) of the full-width archs phase 12 serves: zamba2 (hd 80:
+# rows 40 bytes apart, 8-byte copies), llama4-scout, gemma3-4b (hd 256)
+KV_SHAPES = [(32, 1, 80), (8, 5, 128), (4, 2, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_kv,g,hd", KV_SHAPES)
+def test_kv4_pair_at_the_families_head_dims(cuda, n_kv, g, hd, dt):
+    """kv4_store bit-exact in place and kv4_attend within
+    kv4_attend_allowed (with and without a softcap), over a 64-slot
+    garbage cache at batch 8, 33 slots valid."""
+    cache, draw = _kv4_cache(8, 64, n_kv, hd, cuda, hd + g)
+    k_new, v_new = draw(8, n_kv, hd).to(cuda, dt), draw(8, n_kv, hd).to(
+        cuda, dt)
+    want = [x.clone() for x in cache]
+    k45.kv4_store_plain(k_new, v_new, *want, 32)
+    ops.kv4_store(k_new, v_new, *cache, 32)
+    for got, ref in zip(cache, want):
+        assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+    q = draw(8, n_kv, g, hd).to(cuda, dt)
+    for softcap in (None, 30.0):
+        args = (33, hd ** -0.5, softcap)
+        ref = k45.kv4_attend_plain(q, *cache, *args)
+        before = k45.kv4_attend_cuda.launches
+        out = ops.kv4_attend(q, *cache, *args)
+        assert k45.kv4_attend_cuda.launches == before + 1
+        allowed = k45.kv4_attend_allowed(q, *cache, *args, ref)
+        diff = (out.double() - ref.double()).abs()
+        assert not bool((diff > allowed).any()), (
+            int((diff > allowed).sum()), float(diff.max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,dt,act", [
+    (8, 2560, 10448, torch.bfloat16, True),   # zamba2's in_proj
+    (8, 2560, 10448, torch.float32, True),
+    (8, 5120, 2560, torch.bfloat16, True),    # zamba2's out_proj
+    (8, 5120, 8192, torch.bfloat16, False),   # llama4's expert gate/up
+    (8, 8192, 5120, torch.bfloat16, False)])  # llama4's expert down
+def test_k2_at_the_families_shapes_matches_plain(cuda, m, k, n, dt, act):
+    """K2 at the full-width shapes phase 12 launches (N/2 = 5224 is no
+    multiple of 16: the weight's non-vector load), one launch a call, held
+    to the sum-order rule."""
+    x, args, fmt = _dense_case(S, m, k, n, dt, cuda, act)
+    before = k2.w4_matmul_2d_cuda.launches
+    got = k2.w4_matmul_2d(x, *args, **fmt)
+    assert k2.w4_matmul_2d_cuda.launches == before + 1
+    _assert_order_close(got, k2.w4_matmul_2d_plain(x, *args, **fmt),
+                        _dense_mag(x, args, fmt, k, n), k)
+
+
 def _abs_weight(pw):
     """|w| + |zp| per weight element, w decoded without its zero-point."""
     w = decode_codes(unpack_nibbles(pw.packed), pw.fmt, pw.scale, 0.0,

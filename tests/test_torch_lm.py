@@ -26,8 +26,10 @@ import pytest
 import torch
 
 import repro.kernels.ops as jops
+from _torch_decode import j_tree, k2_per_step
 from _torch_parity import j_packed, np_tree, t, t_packed
 from repro.configs.smollm_135m import smoke as j_smollm_smoke
+from repro.configs.zamba2_27b import smoke as j_zamba2_smoke
 from repro.kernels import ref as jref
 from repro.launch.steps import make_decode_fn as j_make_decode_fn
 from repro.launch.steps import quantize_lm_for_serving as j_quantize
@@ -283,17 +285,53 @@ def test_lm_init_layout_matches_reference():
     assert spec[1]["k"]["shape"] == (2, 2, 8, 2, 8)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(family="moe"), dict(family="ssm"), dict(family="vlm"),
-    dict(family="audio"), dict(family="hybrid", shared_attn_every=3),
-    dict(layer_pattern=(("ssm", None, 10_000.0),)),
-    dict(first_k_dense=1, n_layers=4)])
+# each family's branch on a config beside J_DENSE (the cases that raised
+# NotImplementedError before the families were ported)
+FAMILY_KW = [
+    dict(family="moe", d_ff=0, n_experts=4, top_k=2, moe_d_ff=32,
+         n_shared=1),
+    dict(family="ssm", d_ff=0, layer_pattern=(("ssm", None, 10_000.0),),
+         ssm_d_state=16, ssm_headdim=16, tie_embeddings=True),
+    dict(family="vlm", n_img_tokens=4, d_vision=24),
+    dict(family="audio", pos="sinusoidal", mlp_kind="gelu"),
+    dict(family="hybrid", shared_attn_every=3, ssm_d_state=16,
+         ssm_headdim=16, layer_pattern=(("ssm", None, 10_000.0),) * 3),
+    dict(layer_pattern=(("ssm", None, 10_000.0), (ATTN, 4, 10_000.0),
+                        (ATTN, None, 1e6)), ssm_d_state=16, ssm_headdim=16),
+    dict(first_k_dense=1, n_layers=4)]
+
+
+@pytest.mark.parametrize("kw", FAMILY_KW)
 def test_unported_families_raise(kw):
-    cfg = t_config(J_DENSE, **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tlm.init_caches(cfg, 1, 4)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tlm.lm_init(torch.Generator(), cfg)
+    """(The name is kept from the refusal this test held before the
+    families were ported.) Each family decodes 6 steps on the CPU from
+    its packed W4A4 weights through the plain versions: finite logits,
+    every dense site on K2's plain version (4 an attention layer, 3 a
+    GLU MLP, 2 a GELU one or an SSM layer, 3 a shared expert), every
+    expert product weight-only (3 an expert), the KV kernels once an
+    attention layer, no oracle."""
+    cfg = dataclasses.replace(t_config(J_DENSE, **kw), kv_dtype="fp4")
+    p = quantize_lm_for_serving(tlm.lm_init(torch.Generator().manual_seed(1),
+                                            cfg))
+    ctx = QuantContext("serve", act_qps={"*": QuantizerParams(
+        0, 2, 1, 4, torch.tensor(6.0))})
+    step = make_decode_fn(cfg, ctx=ctx)
+    caches = tlm.init_caches(cfg, 2, 6)
+    tops.reset_routes()
+    for i in range(6):
+        lg, caches = step(p, caches, torch.full((2, 1), i % cfg.vocab), i)
+        assert lg.shape == (2, 1, cfg.vocab)
+        assert bool(torch.isfinite(lg).all())
+    dense, expert = k2_per_step(cfg)
+    n_attn = cfg.first_k_dense + cfg.n_groups * (
+        sum(k == ATTN for k, _, _ in cfg.layer_pattern)
+        + bool(cfg.shared_attn_every))
+    routes = dict(tops.ROUTES)
+    assert routes.pop(("w4a4_matmul", "plain")) == 6 * dense
+    assert routes.pop(("w4_matmul", "plain"), 0) == 6 * expert
+    assert routes.pop(("kv4_store", "plain"), 0) == 6 * n_attn
+    assert routes.pop(("kv4_attend", "plain"), 0) == 6 * n_attn
+    assert "ref" not in {r for (_, r) in routes}, routes
 
 
 @pytest.mark.parametrize("dt", [jnp.float32, jnp.bfloat16])
@@ -322,8 +360,37 @@ def test_quantize_lm_bytes_match_reference(dt, per_channel):
 
 
 def test_quantize_lm_searched_raises():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        quantize_lm_for_serving({}, searched=True)
+    """(The name is kept from the refusal this test held before the search
+    was ported.) ``searched=True`` on zamba2's smoke config, per channel:
+    each unscanned 2D weight (the shared block's) through the MSE search,
+    its format, maxvals and bytes the reference's; each stacked weight on
+    absmax scales whatever ``searched`` says, as the reference does."""
+    jcfg = j_zamba2_smoke()
+    tp = tlm.lm_init(torch.Generator().manual_seed(1), t_config(jcfg))
+    jq = flatten_paths(j_quantize(j_tree(tp), searched=True,
+                                  per_channel=True))
+    tq = flatten_paths(quantize_lm_for_serving(tp, searched=True,
+                                               per_channel=True))
+    assert sorted(jq) == sorted(tq)
+    n_searched = n_stacked = 0
+    for k, want in jq.items():
+        got = tq[k]
+        if not isinstance(got, PackedW4):
+            assert not hasattr(want, "packed"), k
+            continue
+        ref = t_packed(want)
+        assert (got.exp_bits, got.man_bits, got.signed) == \
+            (ref.exp_bits, ref.man_bits, ref.signed), k
+        np.testing.assert_array_equal(got.packed.numpy(), ref.packed.numpy())
+        np.testing.assert_array_equal(got.scale.numpy(), ref.scale.numpy())
+        np.testing.assert_array_equal(got.zero_point.numpy(),
+                                      ref.zero_point.numpy())
+        if got.packed.ndim == 2:
+            n_searched += 1
+        else:
+            n_stacked += 1
+            assert (got.exp_bits, got.man_bits) == (2, 1), k
+    assert (n_searched, n_stacked) == (6, 4)
 
 
 @pytest.mark.parametrize("per_channel", [False, True])
