@@ -67,13 +67,13 @@ Phases, each fatal on failure (exit code 1, no result line):
      (device busy, idle share, kernel launches, K2/kv4_store/kv4_attend
      device ms);
   9. every distinct K2/K3 shape launched by the 8 x 10 run of phase 5,
-     the serve run of phase 7 and phase 12's four serve runs, and every K2
-     shape (either mode) of phase 11's mixed_model run (run after phase
-     12), checked signed and unsigned by check_close
-     and timed as in phases 3-4, with its launches per forward / per
-     decode step in those runs and launches x ms, and per path the sum of
-     launches x ms beside the K2/K3 device totals of the phase 6 and 8
-     profiles;
+     the serve run of phase 7, phase 12's four serve runs and phase 13's
+     eight prefill runs, and every K2 shape (either mode) of phase 11's
+     mixed_model run (this phase runs after phase 13), checked signed and
+     unsigned by check_close and timed as in phases 3-4, with its launches per forward
+     / per decode step in those runs and launches x ms, and per path the
+     sum of launches x ms beside the K2/K3 device totals of the phase 6,
+     8, 12 and 13 profiles;
   10. the paper's pipeline on ddim-cifar10 at full width (pipeline_phase:
      calibration, the MSFP search on the card held against the CPU's on a
      named subset, TALoRA + DFA train steps with K1 and qdq_conv2d
@@ -122,11 +122,35 @@ Phases, each fatal on failure (exit code 1, no result line):
      step of zamba2 and of llama4-scout profiled (busy, idle share,
      launches, top kernels, K2's device ms by mode); the phase's wall
      printed;
-  13. a ``kernels`` JSON line (each kernel's launches in all and per path:
+  13. the LM full-sequence forward and training at full width
+     (prefill_train_phase): (a) smollm-135m (B 8 x S 2048), zamba2-2.7b (B
+     4 x S 2048), gemma3-4b (B 2 x S 2048, across its 1024-token window)
+     and llama4-scout (LLAMA4_DEPTH layers, B 8 x S 512), W4 abs-max, bf16:
+     one forward under a serve context (E2M1 acts: W4A4 K2, K1 before an
+     untied head) and one make_prefill_step call (weight-only K2), each
+     with PREFILL_LAUNCHES a forward, no off-kernel route beyond the dense
+     products, then timed and profiled (wall, prefill tokens/s, busy, idle
+     share, peak memory); (b) the forward card vs CPU in f32 on
+     power-of-two scales (smollm W4A4 at 2 layers, zamba2 W4A4 and
+     weight-only at one group with its weights 2^-3 smaller and 16-step
+     SSD chunks, B 2 x S 256), each between its sound reading and two
+     control faults (PREFILL_CHECKS), every K2 and K1 launch of the card's
+     forward held against its plain version, and the CPU's ulp
+     sensitivity within ULP_SHARE of the limit; (c) launch/train.py at full width (TRAIN_RUNS:
+     smollm-135m 8 steps, checkpoints every 4, and mamba2-370m 4 steps):
+     finite losses, no contained crash, smollm's resumed run (4 steps, the
+     launcher restarted to 8) against the uninterrupted one
+     (RESUME_*_LIMIT), one step profiled; (d) five steps on a fixed batch
+     lower smollm's loss, and one f32 loss and gradient card vs CPU
+     (TRAIN_*_LIMIT) which TF32 in the backward must break. Phases 3-4
+     hold and time K2 at the prefill shapes in both modes and K1 at (B x S,
+     d_model);
+  14. a ``kernels`` JSON line (each kernel's launches in all and per path:
      per forward for ddim-cifar10, per decode step for smollm-135m and
      phase 12's models, per train step for the pipeline, per forward or
      decode step by model for the gateway's mixed_model run, per forward
-     for the fleet's runs), the card line, and the result line.
+     for the fleet's runs and phase 13's prefill runs), the card line, and
+     the result line.
 Needs one card; exits non-zero without one or without the repo around it.
 """
 from __future__ import annotations
@@ -429,6 +453,36 @@ def io_conv_row(dev, site: str, cin: int, cout: int) -> dict:
                 composition="K1 + dense_conv2d's torch f32 conv + bias add")
 
 
+def k1_bf16_row(dev, m: int, n: int) -> dict:
+    """K1 on bf16 (m, n) acts, signed E2M1 at maxval 6 (the snap before an
+    untied LM head): bit-exact against its plain version, then timed."""
+    import torch
+    from repro_torch.kernels import msfp_quant as k1
+    x = _gen_randn(dev, m * 31 + n)(m, n, scale=2.0).to(torch.bfloat16)
+    q = _qp(dev, True, 6.0)
+    kw = dict(exp_bits=q.exp_bits, man_bits=q.man_bits, signed=True)
+    args = (x, q.maxval, q.zero_point)
+    got = k1.msfp_qdq_2d_cuda(*args, **kw)
+    want = k1.msfp_qdq_2d_plain(*args, **kw)
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        fail(f"msfp_qdq ({m},{n}) bf16: not bit-exact "
+             f"({int((got != want).sum())} elements differ)")
+    ms = cuda_ms(lambda: k1.msfp_qdq_2d_cuda(*args, **kw))
+    plain_ms = cuda_ms(lambda: k1.msfp_qdq_2d_plain(*args, **kw))
+    b_ms, b_by = bound(20.0 * m * n, 2 * 2 * m * n, PEAK_F32_PER_S)
+    return dict(shape=f"({m},{n}) bf16", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+# phase 13's prefill shapes for phases 3-4 (see kernel_checks)
+PREFILL_K2_SHAPES = ((16384, 576, 576), (16384, 576, 192),
+                     (16384, 576, 1536), (16384, 1536, 576),
+                     (8192, 2560, 10448), (8192, 5120, 2560),
+                     (320, 5120, 8192), (320, 8192, 5120))
+PREFILL_K1_SHAPES = ((8192, 2560), (4096, 2560), (4096, 5120))
+
+
 def kernel_checks(dev):
     """Phases 3 and 4: per kernel, per main-path shape, check and time
     (K2/K3 at their first main-path shapes; every other shape the paths
@@ -470,22 +524,7 @@ def kernel_checks(dev):
     # before an untied lm_head (phase 12: zamba2 and gemma3-4b at d_model
     # 2560, llama4-scout at 5120), signed E2M1 at maxval 6
     for m, n in ((B, 2560), (B, 5120)):
-        x = randn(m, n, scale=2.0).to(torch.bfloat16)
-        q = qp(True, 6.0)
-        kw = dict(exp_bits=q.exp_bits, man_bits=q.man_bits, signed=True)
-        args = (x, q.maxval, q.zero_point)
-        got = k1.msfp_qdq_2d_cuda(*args, **kw)
-        want = k1.msfp_qdq_2d_plain(*args, **kw)
-        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
-            fail(f"msfp_qdq ({m},{n}) bf16: not bit-exact "
-                 f"({int((got != want).sum())} elements differ)")
-        ms = cuda_ms(lambda: k1.msfp_qdq_2d_cuda(*args, **kw))
-        plain_ms = cuda_ms(lambda: k1.msfp_qdq_2d_plain(*args, **kw))
-        b_ms, b_by = bound(20.0 * m * n, 2 * 2 * m * n, PEAK_F32_PER_S)
-        rows["msfp_qdq"].append(dict(
-            shape=f"({m},{n}) bf16", max_abs_err=0.0, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None))
+        rows["msfp_qdq"].append(k1_bf16_row(dev, m, n))
 
     # the io sites, each one qdq_conv2d launch: conv_in 3 -> 128 and
     # conv_out 128 -> 3 at 32x32
@@ -512,6 +551,20 @@ def kernel_checks(dev):
                          (B, 5120, 8192, False), (B, 8192, 5120, False)):
         rows["w4a4_matmul"].append(k2_row(dev, m, k, n, torch.bfloat16,
                                           act=act))
+
+    # phase 13's prefill shapes, M = B x S rows, bf16, in both K2 modes:
+    # smollm-135m at B 8 x S 2048 (q/o, k/v, gate/up, down), zamba2-2.7b's
+    # in_proj and out_proj at B 4 x S 2048, llama4-scout's expert products
+    # over capacity(4096) = 320 rows
+    for m, k, n in PREFILL_K2_SHAPES:
+        for act in (True, False):
+            rows["w4a4_matmul"].append(k2_row(dev, m, k, n, torch.bfloat16,
+                                              act=act))
+    # K1 before an untied head in a prefill forward: (B x S, d_model) bf16
+    # (zamba2-2.7b at B 4 x S 2048, gemma3-4b at B 2 x S 2048, llama4-scout
+    # at B 8 x S 512); every other prefill K2 shape in phase 9
+    for m, n in PREFILL_K1_SHAPES:
+        rows["msfp_qdq"].append(k1_bf16_row(dev, m, n))
 
     # K3: ResBlock conv 3x3 s1 at 32x32 128->128, downsample 3x3 s2
     # 32->16, up-path 3x3 s1 at 8x8 512->256 and its 1x1 skip 512->256.
@@ -1617,6 +1670,22 @@ def call_control(dev, calls: list) -> int:
     return n
 
 
+def k2_mag(x, packed, scale, zero_point=0.0, act=None, *, exp_bits: int,
+           man_bits: int, signed: bool = True, plan=None):
+    """check_close's magnitude for a K2 call (its wrapper's arguments):
+    |x_q| times abs_weight of the call's pack, in f32 with TF32 off."""
+    from repro_torch.common.device import no_tf32
+    from repro_torch.core.qmodule import PackedW4
+    from repro_torch.quant.fakequant import fp_qdq
+    from repro_torch.quant.formats import FPFormat
+    xq = x if act is None else fp_qdq(x, FPFormat(act[2], act[3], act[4]),
+                                      act[0], act[1])
+    pw = PackedW4(packed, scale, zero_point, exp_bits, man_bits, signed,
+                  (x.shape[1], 2 * packed.shape[1]))
+    with no_tf32():
+        return xq.float().abs() @ abs_weight(pw)
+
+
 def call_checks(dev, calls: list, exact: bool) -> int:
     """Each captured CPU call of phase 6 rerun through its kernel on the
     card and held against the CPU output: a K2/K3 call bit for bit where
@@ -1626,12 +1695,10 @@ def call_checks(dev, calls: list, exact: bool) -> int:
     beside the kernel's for scale. Returns the number of calls held."""
     import torch
     from repro_torch.common.device import no_tf32
-    from repro_torch.core.qmodule import PackedW4
     from repro_torch.kernels import conv as k3
     from repro_torch.kernels import msfp_quant as k1
     from repro_torch.kernels import w4_matmul as k2
-    from repro_torch.quant.fakequant import apply_qdq, fp_qdq
-    from repro_torch.quant.formats import FPFormat
+    from repro_torch.quant.fakequant import apply_qdq
 
     def to(v):
         if isinstance(v, tuple):
@@ -1654,16 +1721,9 @@ def call_checks(dev, calls: list, exact: bool) -> int:
                 k = w.shape[0] * w.shape[1] * w.shape[2]
                 io_equal += int(torch.equal(got, want))
             elif kernel == "w4a4_matmul":
-                x, packed, scale, zp, act = a
                 got = k2.w4_matmul_2d_cuda(*a, **kw)
                 plain = k2.w4_matmul_2d_plain(*a, **kw)
-                xq = x if act is None else fp_qdq(
-                    x, FPFormat(act[2], act[3], act[4]), act[0], act[1])
-                pw = PackedW4(packed, scale, zp, kw["exp_bits"],
-                              kw["man_bits"], kw["signed"],
-                              (x.shape[1], 2 * packed.shape[1]))
-                mag = xq.float().abs() @ abs_weight(pw)
-                k = x.shape[1]
+                mag, k = k2_mag(*a, **kw), a[0].shape[1]
             else:
                 x, pw, aq = a
                 got = k3.w4a4_conv2d_implicit_cuda(*a, **kw)
@@ -1696,8 +1756,8 @@ def call_checks(dev, calls: list, exact: bool) -> int:
 
 def path_shapes(dev, rows: dict, runs: dict, profiled: dict) -> dict:
     """Phase 9: every distinct K2/K3 shape that ``runs`` (path name ->
-    phase 5 or 7 run, with its per-shape launch tally) launched on the
-    card, checked signed and unsigned and timed as in phases 3-4 (shapes
+    a run of phase 5, 7, 11, 12 or 13, with its per-shape launch tally)
+    launched on the card, checked signed and unsigned and timed as in phases 3-4 (shapes
     timed there are reused), with its launches per unit of the path (a
     forward or a decode step) and launches x ms; per path and kernel, the
     sum of launches x ms beside the device total of the path's profile."""
@@ -2951,6 +3011,690 @@ def family_phase(dev) -> dict:
     return out
 
 
+# Phase 13: the LM full-sequence forward (prefill) and training.
+# ---------------------------------------------------------------------------
+
+# (arch, layers or None for all, batch, sequence): each crosses what decode
+# never runs: K2 at M = B x S (16384 rows for smollm), the SSD scan over 8
+# chunks (zamba2), gemma3's 1024-token window, the MoE at capacity(4096)
+PREFILL_RUNS = (("smollm-135m", None, 8, 2048), ("zamba2-2.7b", None, 4, 2048),
+                ("gemma3-4b", None, 2, 2048),
+                ("llama4-scout-17b-a16e", LLAMA4_DEPTH, 8, 512))
+# launches a W4A4 forward must show (under a serve context): phase 12's per
+# decode step without the kv4 pair; make_prefill_step's forward (no
+# context) runs the same sites in K2's weight-only mode and no K1
+PREFILL_LAUNCHES = {
+    "smollm-135m": dict(w4a4=210, weight_only=0, msfp_qdq=0),
+    "zamba2-2.7b": dict(w4a4=162, weight_only=0, msfp_qdq=1),
+    "gemma3-4b": dict(w4a4=238, weight_only=0, msfp_qdq=1),
+    "llama4-scout-17b-a16e": dict(w4a4=28, weight_only=192, msfp_qdq=1)}
+
+
+def weight_only_launches(arch: str) -> dict:
+    w = PREFILL_LAUNCHES[arch]
+    return dict(w4a4=0, weight_only=w["w4a4"] + w["weight_only"], msfp_qdq=0)
+
+
+def _sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def profiled(fn) -> dict:
+    """One call of ``fn`` under torch.profiler (ending in a synchronise):
+    its wall, the device busy time (kernel rows), the idle share and the
+    CUDA kernels launched, device ms by kernel. Device activity first: the host's op events of
+    a step of tens of thousands of launches take the profiler's tables
+    tens of seconds to build (47 s for a mamba2-370m train step on an
+    NVIDIA H100 80GB HBM3); if that records no device time, the host's
+    activity beside it."""
+    from torch.profiler import ProfilerActivity, profile
+    for acts in ([ProfilerActivity.CUDA],
+                 [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            _sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, top = device_time(prof, 4)
+        if busy_ms > 0:
+            break
+    else:
+        fail("the profiler recorded no device time")
+    return {"profile_wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms,
+            "launches": kernel_launches(prof),
+            "kernel_ms": kernel_device_ms(prof), "top": top}
+
+
+def serve_ctx(dev):
+    import torch
+    from repro_torch.quant.calibrate import QuantContext
+    from repro_torch.quant.fakequant import QuantizerParams
+    return QuantContext("serve", act_qps={"*": QuantizerParams(
+        0, 2, 1, 4, torch.tensor(6.0, device=dev))})
+
+
+def prefill_runs(dev) -> dict:
+    """Phase 13(a): each PREFILL_RUNS arch at full width (random weights
+    from the seed drawn on the card, W4 abs-max, bf16), one forward under
+    a serve context (E2M1 acts at maxval 6: W4A4 K2, K1 before an untied
+    head) and one ``make_prefill_step`` call (weight-only K2), each with
+    the counts set to 0 before it and read after: the launches a forward,
+    K2's by mode, must be PREFILL_LAUNCHES' (weight_only_launches'), no
+    off-kernel route beyond the tied readout or the untied head's and the
+    router's f32 products, the logits finite. Then the same call timed
+    (wall, prefill tokens/s, peak memory) and profiled (busy time, idle
+    share, launches)."""
+    import torch
+    from repro_torch.launch.steps import (make_prefill_step,
+                                          quantize_lm_for_serving)
+    from repro_torch.models.lm import forward, lm_init
+    out = {}
+    for arch, depth, b, s in PREFILL_RUNS:
+        cfg = family_config(arch, depth)
+        params = quantize_lm_for_serving(lm_init(
+            torch.Generator(device=dev).manual_seed(0), cfg, dev))
+        toks = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(1))
+        ctx = serve_ctx(dev)
+        modes = {"W4A4": (lambda: forward(params, cfg, toks, ctx=ctx),
+                          PREFILL_LAUNCHES[arch]),
+                 "weight-only": (lambda: make_prefill_step(cfg)(
+                     params, {"tokens": toks}), weight_only_launches(arch))}
+        allowed = ({("tied_logits", "torch")} if cfg.tie_embeddings
+                   else {("matmul", "torch_f32")})
+        if cfg.family == "moe":
+            allowed = allowed | {("matmul", "torch_f32")}
+        reduced = (f"; reduced: n_layers {cfg.n_layers} of "
+                   f"{family_config(arch).n_layers}, widths as published"
+                   if depth else "")
+        for mode, (fn, want) in modes.items():
+            name = f"{arch} prefill {mode}"
+            needed = ["w4a4_matmul"] + (["msfp_qdq"] if want["msfp_qdq"]
+                                        else [])
+
+            def call(fn=fn):
+                with torch.inference_mode():
+                    y = fn()
+                _sync()
+                return y
+
+            run = driven(name, call, needed, allowed)
+            logits, counts = run["out"], run["counts"]
+            if tuple(logits.shape) != (b, s, cfg.vocab) or not bool(
+                    torch.isfinite(logits).all()):
+                fail(f"{name}: logits {tuple(logits.shape)} not finite or "
+                     f"not ({b}, {s}, {cfg.vocab})")
+            del logits
+            k2 = k2_modes(run["shapes"])
+            got = {"w4a4": k2["w4a4"], "weight_only": k2["weight_only"],
+                   "msfp_qdq": counts["msfp_qdq"]}
+            if got != want:
+                fail(f"{name}: launches a forward {got}, expected {want}")
+            if any(counts[k] for k in ("kv4_store", "kv4_attend",
+                                       "kv4_encode", "kv4_decode",
+                                       "w4a4_conv2d", "qdq_conv2d")):
+                fail(f"{name}: a kernel off the prefill path launched: "
+                     f"{counts}")
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            call()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            t1 = time.perf_counter()
+            prof = profiled(call)
+            prof_s = time.perf_counter() - t1
+            print(f"prefill {name} B={b} S={s} bf16: wall {wall * 1e3:.2f} "
+                  f"ms, {b * s / wall:.0f} prefill tokens/s, "
+                  f"max_memory_allocated {peak:.2f} GiB; profiled wall "
+                  f"{prof['profile_wall_ms']:.2f} ms, device busy "
+                  f"{prof['busy_ms']:.3f} ms, idle share "
+                  f"{prof['idle_share']:.3f}, {prof['launches']} CUDA kernel "
+                  f"launches (profile {prof_s:.1f}s); launches a forward "
+                  f"{got}{reduced}", flush=True)
+            for line in prof.pop("top"):
+                print(line, flush=True)
+            out[name] = {"counts": counts, "units": 1, "unit": "forward",
+                         "shapes": run["shapes"], "wall_ms": wall * 1e3,
+                         "tokens_per_s": b * s / wall, "peak_gib": peak,
+                         "launches_per_forward": got, "batch": b, "seq": s,
+                         "n_layers": cfg.n_layers, "reduced": bool(depth),
+                         **prof}
+        del params, modes
+        free_card()
+    return out
+
+
+@contextlib.contextmanager
+def tf32_in_attention():
+    """A control fault: the attention's two products (the f32 logits and
+    the weighted sum) run with TF32 allowed, while the context is open
+    (every f32 product of the forward turns TF32 off around itself, so a
+    global TF32 setting reaches none of them)."""
+    from repro_torch.nn import attention
+    orig = attention.no_tf32
+    attention.no_tf32 = tf32_allowed
+    try:
+        yield
+    finally:
+        attention.no_tf32 = orig
+
+
+# phase 13(b), the prefill card vs CPU on power-of-two scales in f32:
+# (arch, layers, mode, limit on the relative Frobenius error of the
+# logits, the control faults that must break it, the setting: weights
+# from ``steps.dyadic_weights(shift=)``, ``ssm_chunk``). "W4A4": under a
+# serve context, acts snapped (exact W4A4 sums); "weight-only":
+# make_prefill_step. The limits stand between the sound readings and the
+# controls' on an NVIDIA H100 80GB HBM3 at 700.00 W: smollm-135m 4.26e-07
+# (controls 0.522, 0.195). zamba2-2.7b at one group on dyadic_weights'
+# own scale (absmax 0.75 over 2560 inputs) reaches dt 30, a chunk of 256
+# steps sums its log-decays to -2e4, and the reference's segment sums
+# (differences of those sums, repro/nn/ssm.py:75) carry an ulp of 2e-3
+# into every decay factor: its W4A4 forward read 0.833 card vs CPU and
+# the CPU alone moved 0.386 with its rms norms summed in f64, ties
+# flipping. Its weights 2^-3 smaller and 16-step chunks keep dt and the
+# sums small: W4A4 7.6e-07 (controls 0.656, 0.481), weight-only 2.5e-06
+# (controls 0.00797, 0.00108). PERF.md records each limit's history.
+PREFILL_CHECKS = (
+    ("smollm-135m", 2, "W4A4", 1e-3,
+     ("bf16 acts into K2", "TF32 in the attention"), {}),
+    ("zamba2-2.7b", 6, "W4A4", 1e-3,
+     ("bf16 acts into K2", "SSD inputs in bf16"),
+     {"shift": 3, "ssm_chunk": 16}),
+    ("zamba2-2.7b", 6, "weight-only", 1e-4,
+     ("bf16 acts into K2", "SSD inputs in bf16"),
+     {"shift": 3, "ssm_chunk": 16}))
+PREFILL_CHECK_SHAPE = (2, 256)   # batch, sequence
+# a row's premise: the CPU's own logits, its rms norms summed in f64, stay
+# within this share of the row's limit (an ulp cannot reach the limit)
+ULP_SHARE = 0.1
+
+
+@contextlib.contextmanager
+def rmsnorm_in_f64():
+    """Every rms norm sums in f64 (results an ulp or so from the f32 sums)
+    while the context is open: how far that moves the logits is how far
+    ulps can."""
+    from repro_torch.models import lm
+    from repro_torch.nn import layers, ssm
+    orig = layers.rmsnorm_apply
+
+    def rms64(p, x, *, eps=1e-6, plus_one=False):
+        xf = x.double()
+        n = xf * (xf * xf).mean(-1, keepdim=True).add(eps).rsqrt()
+        g = p["g"].double() + (1.0 if plus_one else 0.0)
+        return (n * g).to(x.dtype)
+
+    mods = (layers, lm, ssm)
+    for m in mods:
+        m.rmsnorm_apply = rms64
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.rmsnorm_apply = orig
+
+
+@contextlib.contextmanager
+def held_launches(name: str, exact: bool):
+    """While the context is open, each K1 and K2 launch on the card is
+    held against its plain version on the same inputs: K1 bit for bit, K2
+    bit for bit where ``exact`` (W4A4 on power-of-two scales, whose sums
+    are exact in any order), else by check_close, the f32 sum-order bound
+    of the launch's K. Yields a dict by kernel: launches held, largest
+    difference."""
+    import torch
+    from repro_torch.common.device import no_tf32
+    from repro_torch.kernels import msfp_quant as k1
+    from repro_torch.kernels import w4_matmul as k2
+    plain = {"w4a4_matmul": k2.w4_matmul_2d_plain,
+             "msfp_qdq": k1.msfp_qdq_2d_plain}
+    held = {k: {"launches": 0, "max_abs_err": 0.0} for k in plain}
+
+    def holder(kernel):
+        def wrap(f):
+            def launch(x, *a, **kw):
+                y = f(x, *a, **kw)
+                with no_tf32():
+                    want = plain[kernel](x, *a, **{k: v for k, v in
+                                                   kw.items() if k != "plan"})
+                h = held[kernel]
+                h["launches"] += 1
+                what = f"{name}: {kernel} launch {h['launches']}"
+                if kernel == "msfp_qdq" or exact:
+                    if not torch.equal(y, want):
+                        fail(f"{what} is not bit-exact with its plain "
+                             f"version ({int((y != want).sum())} elements "
+                             f"differ)")
+                else:
+                    check_close(what, y, want, k2_mag(x, *a, **kw),
+                                x.shape[1])
+                h["max_abs_err"] = max(h["max_abs_err"], float(
+                    (y.float() - want.float()).abs().max()))
+                return y
+            return launch
+        return wrap
+    with wrapped_kernels({k: holder(k) for k in plain}):
+        yield held
+
+
+@contextlib.contextmanager
+def ssd_inputs_in_bf16():
+    """A control fault: each SSM layer's SSD scan takes its x, B and C
+    rounded to bf16 (a low-precision scan), while the context is open."""
+    from repro_torch.nn import ssm
+    orig = ssm.ssd_scan
+
+    def rounded(x, dt_a, b_mat, c_mat, chunk, init_state=None):
+        r = (lambda t: t.bfloat16().to(t.dtype))
+        return orig(r(x), dt_a, r(b_mat), r(c_mat), chunk, init_state)
+    ssm.ssd_scan = rounded
+    try:
+        yield
+    finally:
+        ssm.ssd_scan = orig
+
+
+def prefill_checks(dev) -> dict:
+    """Phase 13(b): the forward at full width (depth and setting as
+    PREFILL_CHECKS says), f32, on ``steps.dyadic_weights`` packs drawn on
+    the card and copied to the host, the same tokens on both devices: the
+    card (K2, K1) against the CPU (their plain versions), held to the
+    row's limit, with each K2 and K1 launch of the card's forward held
+    against its plain version (held_launches: bit for bit in the W4A4
+    mode, by check_close in the weight-only mode, whose f32 acts make the
+    products inexact); each control fault, rerun on the card, must break
+    the limit; the CPU with its rms norms summed in f64 must stay within
+    ULP_SHARE of it (the row's premise)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import (dyadic_weights, make_prefill_step,
+                                          quantize_lm_for_serving)
+    from repro_torch.models.lm import forward, lm_init
+    from repro_torch.serving.weight_bank import _tree_to
+    controls = {"bf16 acts into K2": bf16_act_kernels,
+                "TF32 in the attention": tf32_in_attention,
+                "SSD inputs in bf16": ssd_inputs_in_bf16}
+
+    def run(cfg, params, device, toks, mode):
+        with torch.inference_mode():
+            if mode == "W4A4":
+                y = forward(params, cfg, toks.to(device),
+                            ctx=serve_ctx(device))
+            else:
+                y = make_prefill_step(cfg)(params,
+                                           {"tokens": toks.to(device)})
+        return y.double().cpu().numpy()
+
+    def rel(g, w) -> float:
+        return float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+
+    b, s = PREFILL_CHECK_SHAPE
+    res, packs = {}, {}
+    for arch, depth, mode, limit, names, setting in PREFILL_CHECKS:
+        t0 = time.perf_counter()
+        shift = setting.get("shift", 0)
+        cfg = dataclasses.replace(family_config(arch, depth),
+                                  dtype=torch.float32,
+                                  **{k: v for k, v in setting.items()
+                                     if k != "shift"})
+        if (arch, shift) not in packs:
+            packs.clear()
+            free_card()
+            packed = quantize_lm_for_serving(dyadic_weights(lm_init(
+                torch.Generator(device=dev).manual_seed(0), cfg, dev),
+                shift=shift))
+            packs[arch, shift] = (packed, _tree_to(packed,
+                                                   torch.device("cpu")))
+        packed, host = packs[arch, shift]
+        toks = torch.randint(0, cfg.vocab, (b, s),
+                             generator=torch.Generator().manual_seed(2))
+        label = (f"{arch} depth {depth} {mode}"
+                 + "".join(f" {k} {v}" for k, v in setting.items()))
+        with held_launches(f"prefill {label}", mode == "W4A4") as held:
+            g = run(cfg, packed, dev, toks, mode)
+        if not np.isfinite(g).all():
+            fail(f"{arch} prefill on the card is not finite")
+        w = run(cfg, host, torch.device("cpu"), toks, mode)
+        with rmsnorm_in_f64():
+            ws = run(cfg, host, torch.device("cpu"), toks, mode)
+        sound, ulps = rel(g, w), rel(ws, w)
+        faults = {}
+        for c in names:
+            with controls[c]():
+                faults[c] = rel(run(cfg, packed, dev, toks, mode), w)
+        k2, k1 = held["w4a4_matmul"], held["msfp_qdq"]
+        print(f"prefill {label} f32 B={b} S={s}, dyadic weights, card vs CPU "
+              f"plain: relative Frobenius error {sound:.3g} (argmax equal "
+              f"{bool((g.argmax(-1) == w.argmax(-1)).all())}), held to <= "
+              f"{limit:g}; the CPU with its rms norms in f64 vs the CPU: "
+              f"{ulps:.3g}, held to <= {ULP_SHARE * limit:g}; every launch "
+              f"of the card's forward vs its plain version: K2 "
+              f"{k2['launches']} "
+              + ("bit-exact" if mode == "W4A4" else "by check_close")
+              + f" (largest difference {k2['max_abs_err']:.3g}), K1 "
+              f"{k1['launches']} bit-exact; control faults: "
+              + "; ".join(f"{c}: {r:.3g}" for c, r in faults.items())
+              + f" (wall {time.perf_counter() - t0:.1f}s)", flush=True)
+        if sound > limit:
+            fail(f"{label} prefill on the card disagrees with the plain CPU "
+                 f"forward ({sound:.3g} > {limit:g})")
+        if ulps > ULP_SHARE * limit:
+            fail(f"{label}: an ulp moves the CPU's logits by {ulps:.3g}, "
+                 f"beyond {ULP_SHARE:g} of the limit: the forward is too "
+                 f"ill-conditioned for the check")
+        if not k2["launches"]:
+            fail(f"{label}: the card's forward launched no K2")
+        for c, r in faults.items():
+            if r <= limit:
+                fail(f"{label}: control fault '{c}' passes the prefill check "
+                     f"({r:.3g} <= {limit:g}): the check would not see it")
+        res[label] = {"sound": sound, "ulp_sensitivity": ulps,
+                      "held_launches": held, "controls": faults,
+                      "limit": limit}
+    del packed, host
+    packs.clear()
+    free_card()
+    return res
+
+
+# phase 13(c): (arch, batch, sequence, steps, checkpoint every) through
+# launch/train.py at full width in bf16; smollm also resumed: 4 steps, then
+# the launcher restarted from that checkpoint to 8
+TRAIN_RUNS = (("smollm-135m", 8, 512, 8, 4),
+              ("mamba2-370m", 4, 1024, 4, 100))
+# the resumed run against the uninterrupted one, steps 5-8: each loss
+# within RESUME_LOSS_LIMIT (relative), which the control, the reference's
+# resume (its token stream started again from the first batch), must
+# break; the parameters' relative Frobenius error within
+# RESUME_PARAM_LIMIT, a bound on the drift only. The gradients' reductions
+# are not deterministic on the card (the embedding's backward adds with
+# atomics, into bf16), so the two runs need not agree bit for bit: one run
+# read losses 7.4e-05 apart, the parameters 1.65e-03, Adam's m
+# 0.039 and v 0.029; the control read 0.029 on the loss, 6.0e-03 on the
+# parameters (NVIDIA H100 80GB HBM3, 700.00 W).
+RESUME_LOSS_LIMIT = 1e-3
+RESUME_PARAM_LIMIT = 5e-3
+
+
+def tree_rel(a, b) -> float:
+    """Relative Frobenius error of tree ``a`` against tree ``b``."""
+    import torch
+    from repro_torch.common.tree import tree_leaves
+    num = den = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = (x.double() - y.double())
+        num += float(torch.sum(d * d))
+        den += float(torch.sum(y.double() ** 2))
+    return math.sqrt(num / max(den, 1e-30))
+
+
+@contextlib.contextmanager
+def restarted_stream():
+    """A control fault: the train launcher's token stream starts again
+    from the first batch when a run resumes (the reference's launcher),
+    while the context is open."""
+    from repro_torch.launch import train
+    orig, first = train.batch_of, []
+
+    def batch_of(cfg, args, device, step):
+        first[:] = first or [step]
+        return orig(cfg, args, device, step - first[0])
+    train.batch_of = batch_of
+    try:
+        yield
+    finally:
+        train.batch_of = orig
+
+
+def resume_check(argv, cfg, steps: int, tmp: str, straight: dict) -> dict:
+    """``steps // 2`` steps, then the launcher restarted from that
+    checkpoint to ``steps``, against the uninterrupted run ``straight``:
+    the losses of the resumed steps and the parameters (Adam's moments
+    printed beside them) held to RESUME_*_LIMIT; the same resume under
+    ``restarted_stream`` must break the loss limit."""
+    import shutil
+
+    from repro_torch.launch import train
+    half = steps // 2
+    first = train.main(argv + ["--steps", str(half), "--ckpt-dir",
+                               f"{tmp}/resumed"], cfg=cfg)
+    shutil.copytree(f"{tmp}/resumed", f"{tmp}/control")
+    runs = {"resumed": train.main(argv + ["--steps", str(steps), "--ckpt-dir",
+                                          f"{tmp}/resumed"], cfg=cfg)}
+    with restarted_stream():
+        runs["control"] = train.main(argv + ["--steps", str(steps),
+                                             "--ckpt-dir", f"{tmp}/control"],
+                                     cfg=cfg)
+    want = straight["losses"][half:]
+    sp, so = straight["state"]
+    out = {}
+    for name, r in runs.items():
+        if r["start"] != half or first["restarts"] or r["restarts"]:
+            fail(f"resume: the restarted launcher started at step "
+                 f"{r['start']} (restarts {first['restarts']}, "
+                 f"{r['restarts']})")
+        p, o = r["state"]
+        loss_err = max(abs(x - y) / abs(y) for x, y in zip(r["losses"], want))
+        out[name] = {"losses": r["losses"], "loss_rel_err": loss_err,
+                     "params_rel_frobenius": tree_rel(p, sp),
+                     "m_rel_frobenius": tree_rel(o["m"], so["m"]),
+                     "v_rel_frobenius": tree_rel(o["v"], so["v"]),
+                     "bit_exact": (first["losses"] + r["losses"]
+                                   == straight["losses"]
+                                   and tree_rel(r["state"],
+                                                straight["state"]) == 0.0)}
+    res, ctl = out["resumed"], out["control"]
+    print(f"train resumed ({half} steps, then the launcher restarted from "
+          f"step {half} to {steps}) vs uninterrupted: losses "
+          f"{first['losses'] + res['losses']} against {straight['losses']}; "
+          f"largest loss relative error {res['loss_rel_err']:.3g} (held to "
+          f"<= {RESUME_LOSS_LIMIT:g}); relative Frobenius error of the "
+          f"parameters {res['params_rel_frobenius']:.3g} (held to <= "
+          f"{RESUME_PARAM_LIMIT:g}), of Adam's m "
+          f"{res['m_rel_frobenius']:.3g} and v {res['v_rel_frobenius']:.3g};"
+          f" bit-exact {res['bit_exact']}; control (the token stream "
+          f"restarted): loss {ctl['loss_rel_err']:.3g}, parameters "
+          f"{ctl['params_rel_frobenius']:.3g}", flush=True)
+    if res["loss_rel_err"] > RESUME_LOSS_LIMIT \
+            or res["params_rel_frobenius"] > RESUME_PARAM_LIMIT:
+        fail("the resumed run does not match the uninterrupted one")
+    if ctl["loss_rel_err"] <= RESUME_LOSS_LIMIT:
+        fail(f"control fault 'token stream restarted' passes the resume "
+             f"check ({ctl['loss_rel_err']:.3g} <= {RESUME_LOSS_LIMIT:g})")
+    return {k: {f: v for f, v in r.items() if f != "losses"}
+            for k, r in out.items()}
+
+
+def train_runs(dev, tmp: str) -> dict:
+    """Phase 13(c): TRAIN_RUNS through ``launch/train.main`` (random
+    weights and zipf batches from the seed on the card, Adam under the
+    reference's schedule, checkpoints under ``tmp``): every loss finite,
+    no contained crash (``restarts`` 0), then one more step of the
+    launcher's own train step, on its next batch, profiled; smollm's resumed run held to the uninterrupted
+    one (``resume_check``)."""
+    from repro_torch.launch import train
+    out = {}
+    for arch, b, s, steps, every in TRAIN_RUNS:
+        argv = ["--arch", arch, "--batch", str(b), "--seq", str(s),
+                "--ckpt-every", str(every), "--device", "cuda"]
+        name = f"{arch} train"
+        print(f"--- train: {name} B={b} S={s}, {steps} steps", flush=True)
+        cfg = family_config(arch)
+        t0 = time.perf_counter()
+        r = train.main(argv + ["--steps", str(steps), "--ckpt-dir",
+                               f"{tmp}/{arch}-straight"], cfg=cfg)
+        wall = time.perf_counter() - t0
+        losses = r["losses"]
+        if len(losses) != steps or not all(map(math.isfinite, losses)):
+            fail(f"{name}: losses {losses}")
+        if r["restarts"]:
+            fail(f"{name}: the trainer contained {r['restarts']} crashes")
+        walls = sorted(h.wall for h in r["history"])
+        med = walls[len(walls) // 2]
+        batch = r["data"](steps)
+        params, opt = r["state"]
+        step = r["step"]
+        t1 = time.perf_counter()
+        prof = profiled(lambda: step(params, opt, batch))
+        prof_s = time.perf_counter() - t1
+        top = prof.pop("top")
+        row = {"losses": losses, "step_wall_ms_median": med * 1e3,
+               "tokens_per_s": b * s / med,
+               "peak_gib": r["peak_bytes"] / 2**30, "run_wall_s": wall,
+               "stragglers": r["stragglers"], **prof}
+        print(f"train {name} bf16 B={b} S={s}: {steps} steps, loss[0] "
+              f"{losses[0]:.4f} loss[-1] {losses[-1]:.4f}, median step wall "
+              f"{med * 1e3:.1f} ms ({b * s / med:.0f} tokens/s), "
+              f"max_memory_allocated {row['peak_gib']:.2f} GiB; profiled "
+              f"step wall {prof['profile_wall_ms']:.1f} ms, device busy "
+              f"{prof['busy_ms']:.2f} ms, idle share "
+              f"{prof['idle_share']:.3f}, {prof['launches']} CUDA kernel "
+              f"launches (profile {prof_s:.1f}s); stragglers "
+              f"{r['stragglers']}, run wall {wall:.1f}s", flush=True)
+        for line in top:
+            print(line, flush=True)
+        del params, opt, batch, step
+        if arch == "smollm-135m":
+            t1 = time.perf_counter()
+            row["resume"] = resume_check(argv, cfg, steps,
+                                         f"{tmp}/{arch}", r)
+            print(f"resume check wall {time.perf_counter() - t1:.1f}s",
+                  flush=True)
+        del r
+        free_card()
+        out[name] = row
+    return out
+
+
+# phase 13(d): one f32 train step's loss and gradients card vs CPU at
+# smollm-135m's full width, 2 layers, B 2 x S 128: the worst leaf's
+# relative Frobenius error held to this limit, between the sound reading
+# and the TF32-in-the-backward control
+TRAIN_GRAD_LIMIT = 1e-4
+TRAIN_LOSS_LIMIT = 1e-5        # relative
+LEARN_STEPS, LEARN_LR = 5, 5e-3
+
+
+@contextlib.contextmanager
+def tf32_train_backward():
+    """A control fault: the train step runs with TF32 allowed; the
+    forward's products set it off around themselves, so it reaches the
+    backward's products only."""
+    from repro_torch.launch import steps
+    orig = steps.no_tf32
+    steps.no_tf32 = tf32_allowed
+    try:
+        yield
+    finally:
+        steps.no_tf32 = orig
+
+
+def train_checks(dev) -> dict:
+    """Phase 13(d): five make_train_step steps on one fixed batch at lr
+    5e-3 (the reference's test_arch_train_step_decreases_loss recipe) at
+    smollm-135m's full width in bf16 must lower the loss; then one f32
+    loss and gradient (the train step's value_and_grad, TF32 off) card vs
+    CPU at 2 layers, held to TRAIN_LOSS_LIMIT and TRAIN_GRAD_LIMIT, which
+    the TF32-in-the-backward control must break."""
+    import dataclasses
+
+    import torch
+    from repro_torch.common.tree import flatten_paths
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import lm_init
+    from repro_torch.optim.adam import AdamConfig, adam_init
+    from repro_torch.serving.weight_bank import _tree_to
+    cfg = family_config("smollm-135m")
+    params = lm_init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 128), device=dev,
+                                     generator=torch.Generator(device=dev)
+                                     .manual_seed(3))}
+    acfg = AdamConfig(lr=LEARN_LR)
+    opt = adam_init(params, acfg)
+    step = steps.make_train_step(cfg, acfg)
+    losses = []
+    for _ in range(LEARN_STEPS):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    print(f"train smollm-135m bf16 full width, {LEARN_STEPS} steps on one "
+          f"fixed batch (B 2 x S 128) at lr {LEARN_LR:g}: losses {losses}",
+          flush=True)
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        fail(f"five train steps on a fixed batch did not lower the loss: "
+             f"{losses}")
+    del params, opt, step
+    free_card()
+
+    cfg = dataclasses.replace(family_config("smollm-135m", 2),
+                              dtype=torch.float32)
+    params = lm_init(torch.Generator(device=dev).manual_seed(4), cfg, dev)
+    host = _tree_to(params, torch.device("cpu"))
+    tb = {"tokens": torch.randint(0, cfg.vocab, (2, 128),
+                                  generator=torch.Generator().manual_seed(5))}
+
+    def grads(p, device):
+        # the train step's value_and_grad under its TF32 setting, looked
+        # up at call time so the control can replace it
+        with steps.no_tf32():
+            loss, g = steps.value_and_grad(
+                p, cfg, {"tokens": tb["tokens"].to(device)})
+        return float(loss), {k: v.double().cpu()
+                             for k, v in flatten_paths(g).items()}
+
+    def worst(g, w) -> tuple[float, str]:
+        errs = {k: float(torch.linalg.norm(g[k] - w[k])
+                         / max(float(torch.linalg.norm(w[k])), 1e-30))
+                for k in w}
+        k = max(errs, key=errs.get)
+        return errs[k], k
+
+    lw, gw = grads(host, torch.device("cpu"))
+    lg, gg = grads(params, dev)
+    loss_err = abs(lg - lw) / abs(lw)
+    sound, leaf = worst(gg, gw)
+    with tf32_train_backward():
+        _, gt = grads(params, dev)
+    control, cleaf = worst(gt, gw)
+    print(f"train step smollm-135m depth 2 f32 B 2 x S 128, card vs CPU: "
+          f"loss {lg:.6f} vs {lw:.6f} (relative error {loss_err:.3g}, held "
+          f"to <= {TRAIN_LOSS_LIMIT:g}); worst leaf's gradient relative "
+          f"Frobenius error {sound:.3g} ({leaf}), held to <= "
+          f"{TRAIN_GRAD_LIMIT:g}; control TF32 in the backward: {control:.3g}"
+          f" ({cleaf})", flush=True)
+    if loss_err > TRAIN_LOSS_LIMIT or sound > TRAIN_GRAD_LIMIT:
+        fail("the train step on the card disagrees with the CPU's")
+    if control <= TRAIN_GRAD_LIMIT:
+        fail(f"control fault 'TF32 in the backward' passes the gradient "
+             f"check ({control:.3g} <= {TRAIN_GRAD_LIMIT:g})")
+    del params, host
+    free_card()
+    return {"losses": losses, "loss_rel_err": loss_err,
+            "grad_worst_rel": sound, "grad_worst_leaf": leaf,
+            "tf32_backward_control": control}
+
+
+def prefill_train_phase(dev) -> dict:
+    """Phase 13: (a) prefill runs, (b) prefill card vs CPU, (c) the train
+    launcher, (d) learning and one train step card vs CPU; its wall."""
+    print("--- the LM full-sequence forward and training at full width",
+          flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"prefill": prefill_runs(dev), "checks": prefill_checks(dev),
+               "train": train_runs(dev, tmp), "train_checks":
+               train_checks(dev)}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"prefill and training phase wall {out['wall_s']:.1f} s",
+          flush=True)
+    return out
+
+
 # a kernel's instances in a profile: K2/K3 carry their operand loader's
 # name (split-K reduction included; K3's as the template argument
 # "ConvA<", since qdq_conv2d's kernel takes a "ConvArgs"), the kv4
@@ -3054,6 +3798,7 @@ def main() -> None:
     plan_runs = plan_serve_runs(trace8)
     gateway = gateway_phase(dev, golden["out"]["digest"])
     families = family_phase(dev)
+    lm13 = prefill_train_phase(dev)
     tmp_dir.cleanup()
     rows["qdq_conv2d"].extend(pipeline["io_rows"])
     # each path's own launches, per forward (diffusion), per decode step
@@ -3065,7 +3810,8 @@ def main() -> None:
              "ddim-cifar10 train step": pipeline["train_run"],
              **{f"gateway mixed_model {name}": run for name, run in
                 gateway["mixed_model"]["paths"].items()},
-             **gateway["fleet"]["paths"], **families["runs"]}
+             **gateway["fleet"]["paths"], **families["runs"],
+             **lm13["prefill"]}
     by_path = {k: {name: {"launches": run["counts"][k],
                           f"per_{run['unit'].replace(' ', '_')}":
                               run["counts"][k] / run["units"]}
@@ -3078,8 +3824,9 @@ def main() -> None:
         dev, rows, {"ddim-cifar10 8x10": wall, "smollm-135m serve": lm_serve,
                     **{f"gateway mixed_model {name}": run for name, run in
                        gateway["mixed_model"]["paths"].items()},
-                    **families["runs"]},
-        {"ddim-cifar10 8x10": fwd["profile_kernel_ms"],
+                    **families["runs"], **lm13["prefill"]},
+        {**{name: r["kernel_ms"] for name, r in lm13["prefill"].items()},
+         "ddim-cifar10 8x10": fwd["profile_kernel_ms"],
          "smollm-135m serve": lm["profile_kernel_ms"],
          "zamba2-2.7b serve":
              families["profiles"]["zamba2-2.7b"]["profile_kernel_ms"],
@@ -3148,6 +3895,13 @@ def main() -> None:
                           "checks": families["checks"],
                           "profiles": families["profiles"],
                           "wall_s": families["wall_s"]},
+                      "lm_prefill_train": {
+                          "prefill": {k: {f: v for f, v in r.items()
+                                          if f not in ("counts", "shapes")}
+                                      for k, r in lm13["prefill"].items()},
+                          "checks": lm13["checks"], "train": lm13["train"],
+                          "train_checks": lm13["train_checks"],
+                          "wall_s": lm13["wall_s"]},
                       "lm": {"tok_s": lm_serve["tok_s"],
                              "peak_mib": lm_serve["peak_mib"],
                              "launches_per_step":

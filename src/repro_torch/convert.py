@@ -14,7 +14,11 @@ keys are themselves ``/``-joined weight paths such as ``mid.attn/q/w``).
 The pipeline's state comes across the same way: a ``QuantPlan`` with each
 site's ``QuantizerParams`` and ``SiteInfo`` (``plan_from_numpy``), a
 ``CalibrationDB`` (``calibration_db_from_numpy``) and the Adam state
-(``adam_state_from_numpy``); TALoRA hubs and the router are trees.
+(``adam_state_from_numpy``, the fine-tune's or an LM's, whose moments keep
+the params' lists of stacked blocks); TALoRA hubs and the router are
+trees. A checkpoint the JAX package's ``CheckpointManager`` wrote (an LM's
+params and Adam state, bf16 leaves included) needs no conversion: the
+port's ``checkpoint/ckpt.py`` restores it, verified, as torch tensors.
 """
 from __future__ import annotations
 

@@ -192,13 +192,13 @@ def attend(q: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
     valid = torch.arange(s_max, device=q.device) < valid_len
     logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
     w = torch.softmax(logits, dim=-1).to(vals.dtype)
-    with no_tf32(), _f32_reductions():
+    with no_tf32(), f32_reductions():
         o = torch.einsum("bkgqs,bskh->bqkgh", w, vals)
     return o[:, 0]
 
 
 @contextlib.contextmanager
-def _f32_reductions():
+def f32_reductions():
     """cuBLAS may add a bf16 product's split-K partials in bf16 unless told
     not to; the reference (and the CPU) reduce in f32."""
     m = torch.backends.cuda.matmul

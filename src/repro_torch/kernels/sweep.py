@@ -2,6 +2,8 @@
 
     python -m repro_torch.kernels.sweep        (needs a CUDA card)
     python -m repro_torch.kernels.sweep --io   (the io sites' qdq_conv2d)
+    python -m repro_torch.kernels.sweep --prefill   (K2 at the LM prefill's
+                                                     M = B x S shapes)
 
 For each shape it prints one markdown table row: the (tile, splits) that
 ``w4_matmul.gemm_plan`` picks and its device time per call (CUDA-graph
@@ -9,6 +11,10 @@ replays timed with CUDA events), the fastest of ``gemm_candidates`` and
 its time, and every candidate's time by tile and split count: the data
 behind the plan's rule. Signed E2M1 weights and E2M1 acts at maxval 6,
 f32 (bf16 at the LM shapes), inputs from a seeded generator.
+
+``--prefill`` times K2 in both modes (E2M1 acts on, and weight-only) at
+the shapes of ``chip_smoke.py`` phase 13's prefill forwards instead, bf16
+(``PREFILL_GEMMS``): the plan there was fitted on M <= 2048.
 
 ``--io`` times ``qdq_conv2d`` instead, at ddim-cifar10's two io sites
 (32x32, bf16 weights, E2M1 acts at maxval 6, a bias) at each batch of the
@@ -32,6 +38,11 @@ from repro_torch.quant.fakequant import QuantizerParams
 GEMMS = [(8, 576, 576, torch.bfloat16), (8, 1536, 576, torch.bfloat16),
          (8, 512, 256, torch.float32), (128, 256, 256, torch.float32),
          (2048, 256, 256, torch.float32)]
+# (m, k, n): smollm-135m at B 8 x S 2048, zamba2-2.7b's in_proj and
+# out_proj at B 4 x S 2048, llama4-scout's expert products at capacity(4096)
+PREFILL_GEMMS = [(16384, 576, 576), (16384, 576, 192), (16384, 576, 1536),
+                 (16384, 1536, 576), (8192, 2560, 10448), (8192, 5120, 2560),
+                 (320, 5120, 8192), (320, 8192, 5120)]
 CONVS = [(8, 32, 128, 128, 3, 1), (8, 32, 128, 128, 3, 2),
          (8, 32, 256, 256, 3, 1), (8, 16, 256, 256, 3, 1),
          (8, 16, 512, 256, 3, 1), (8, 8, 256, 256, 3, 1),
@@ -65,12 +76,18 @@ def device_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return start.elapsed_time(end) / (reps * iters)
 
 
+WORKSPACE_LIMIT = 1 << 30   # bytes of split-K partials a timed plan may take
+
+
 def sweep(launch, m: int, n: int, k: int) -> str:
-    """``launch(plan)`` timed at each of ``gemm_candidates(m, n, k)``: the
+    """``launch(plan)`` timed at each of ``gemm_candidates(m, n, k)`` whose
+    f32 split partials fit WORKSPACE_LIMIT (the plan's own always): the
     row's cells after its shape."""
-    us = {plan: device_ms(lambda: launch(plan)) * 1e3  # noqa: B023
-          for plan in k2.gemm_candidates(m, n, k)}
     chosen = k2.gemm_plan(m, n, k)
+    us = {plan: device_ms(lambda: launch(plan)) * 1e3  # noqa: B023
+          for plan in k2.gemm_candidates(m, n, k)
+          if plan == chosen or plan[1] == 1
+          or 4 * plan[1] * m * n <= WORKSPACE_LIMIT}
     best = min(us, key=us.get)
     by_tile = "; ".join(
         f"tile {cfg}: " + " ".join(f"{s}:{t:.2f}" for (c, s), t in us.items()
@@ -106,6 +123,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--io", action="store_true",
                     help="time the io sites' qdq_conv2d instead of K2/K3")
+    ap.add_argument("--prefill", action="store_true",
+                    help="time K2 at the LM prefill's shapes, both modes")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     if dev.type != "cuda":
@@ -118,15 +137,23 @@ def main(argv=None) -> None:
           "splits |\n| --- | --- | --- | --- |", flush=True)
     aq = QuantizerParams(0, 2, 1, 4, torch.tensor(6.0)).to(dev)
     act = (aq.maxval, aq.zero_point, 2, 1, True)
-    for m, k, n, dt in GEMMS:
+    if args.prefill:
+        gemms = [(m, k, n, torch.bfloat16, a) for m, k, n in PREFILL_GEMMS
+                 for a in (act, None)]
+    else:
+        gemms = [(m, k, n, dt, act) for m, k, n, dt in GEMMS]
+    for m, k, n, dt, a in gemms:
         w = torch.randn(k, n, generator=gen)
         pw = pack_weight(w, QuantizerParams(0, 2, 1, 4, w.abs().max())).to(dev)
         x = torch.randn(m, k, generator=gen).to(dev, dt)
         kw = dict(exp_bits=2, man_bits=1, signed=True)
         line = sweep(lambda plan: k2.w4_matmul_2d_cuda(
-            x, pw.packed, pw.scale, pw.zero_point, act, plan=plan, **kw),
+            x, pw.packed, pw.scale, pw.zero_point, a, plan=plan, **kw),
             m, n, k)
-        print(f"| K2 ({m},{k})x({k},{n}) {str(dt)[6:]} | {line}", flush=True)
+        print(f"| K2 ({m},{k})x({k},{n}) {str(dt)[6:]}"
+              f"{'' if a else ' weight-only'} | {line}", flush=True)
+    if args.prefill:
+        return
     for b, hw, cin, cout, kh, s in CONVS:
         w = torch.randn(kh, kh, cin, cout, generator=gen)
         pw = pack_weight(w, QuantizerParams(0, 2, 1, 4, w.abs().max())).to(dev)

@@ -106,8 +106,10 @@ def main(argv=None, cfg=None) -> dict:
         ctx = QuantContext("serve", act_qps={"*": qp})
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=gen, device=device)
-    # the vlm's patch embeddings, as the reference builds them (decode does
-    # not read them: the vision frontend is item 12c's full-sequence path)
+    # the vlm's patch embeddings, as the reference builds them; decode does
+    # not read them: the vision frontend runs in the full-sequence forward
+    # (models/lm.py:_embed_tokens), and this launcher prefills by stepping
+    # the prompt through decode, as the reference's does
     extra = (torch.zeros((args.batch, cfg.n_img_tokens, cfg.d_vision),
                          dtype=cfg.dtype, device=device)
              if cfg.family == "vlm" else None)

@@ -1,5 +1,7 @@
-"""LM serving steps; port of the serving part of ``repro.launch.steps``:
-the decode function and the W4 packing of an LM's weights."""
+"""The LM steps; port of ``repro.launch.steps``: the train step (with
+gradient accumulation), the prefill and decode functions, and the W4
+packing of an LM's weights. The abstract (dry-run) trees and input specs
+belong to the distribution layer (ROADMAP Queue A item 13)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,10 +10,13 @@ import re
 
 import torch
 
-from repro_torch.common.tree import flatten_paths, unflatten_paths
+from repro_torch.common.device import no_tf32
+from repro_torch.common.tree import (flatten_paths, tree_leaves, tree_map,
+                                     unflatten_paths)
 from repro_torch.core.qmodule import (PackedW4, encode_codes,
                                       pack_nibbles, pack_weight)
-from repro_torch.models.lm import LMConfig, decode_step
+from repro_torch.models.lm import LMConfig, decode_step, forward, loss_fn
+from repro_torch.optim.adam import AdamConfig, adam_update
 from repro_torch.quant.fakequant import KIND_FP_SIGNED, QuantizerParams
 from repro_torch.quant.search import search_weight_params
 
@@ -21,11 +26,11 @@ QUANT_WEIGHT_RE = re.compile(
     r"((wq|wk|wv|wo|gate|up|down|in_proj|out_proj)/w|w_gate|w_up|w_down)$")
 
 
-def dyadic_weights(params):
+def dyadic_weights(params, shift: int = 0):
     """``params`` with every quantizable weight's output columns rescaled to
     absmax 0.75 * 2^-j, each column's largest entry set to exactly that:
     j = n % 4 for output column n, plus g % 3 for layer g of a stacked
-    (G, ..., N) weight. Packed by ``quantize_lm_for_serving``, per tensor
+    (G, ..., N) weight, plus ``shift``. Packed by ``quantize_lm_for_serving``, per tensor
     or per channel, every grid scale is then a power of two that differs
     from layer to layer (and, per channel, from column to column), every
     decoded weight and every E2M1-snapped act a short dyadic number, and
@@ -36,7 +41,7 @@ def dyadic_weights(params):
     flat = flatten_paths(params)
     for path, w in flat.items():
         if QUANT_WEIGHT_RE.search(path):
-            j = torch.arange(w.shape[-1], device=w.device) % 4
+            j = torch.arange(w.shape[-1], device=w.device) % 4 + shift
             if w.ndim > 2:
                 lead = w.shape[:-2]
                 j = j + (torch.arange(math.prod(lead), device=w.device)
@@ -47,6 +52,62 @@ def dyadic_weights(params):
             top_v = torch.where(w.gather(-2, top) < 0, -target, target)
             flat[path] = w.scatter(-2, top, top_v.expand_as(top).to(w.dtype))
     return unflatten_paths(flat)
+
+
+def value_and_grad(params, cfg: LMConfig, batch: dict):
+    """(loss, grads): ``loss_fn`` on the batch and its gradient with
+    respect to every leaf of ``params`` (the grads in the leaves' dtypes,
+    as ``jax.value_and_grad`` gives them)."""
+    with torch.enable_grad():
+        ps = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss = loss_fn(ps, cfg, batch["tokens"], batch.get("extra"))
+        grads = torch.autograd.grad(loss, tree_leaves(ps))
+    it = iter(grads)
+    return loss.detach(), tree_map(lambda _: next(it), ps)
+
+
+def make_train_step(cfg: LMConfig, acfg: AdamConfig, *, grad_accum: int = 1):
+    """The standard train step: loss, gradient, Adam. ``grad_accum > 1``
+    splits the batch into that many microbatches along its first axis and
+    sums their gradients in f32, then divides loss and gradients by the
+    count, as the reference's scan does. The step (backward included) runs
+    with TF32 off: the reference computes in f32."""
+
+    def train_step(params, opt, batch):
+        with no_tf32():
+            if grad_accum == 1:
+                loss, grads = value_and_grad(params, cfg, batch)
+            else:
+                micro = {k: v.reshape(grad_accum, v.shape[0] // grad_accum,
+                                      *v.shape[1:]) for k, v in batch.items()}
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=batch["tokens"].device)
+                grads = tree_map(lambda t: torch.zeros(
+                    t.shape, dtype=torch.float32, device=t.device), params)
+                for i in range(grad_accum):
+                    li, gi = value_and_grad(
+                        params, cfg, {k: v[i] for k, v in micro.items()})
+                    loss = loss + li
+                    grads = tree_map(lambda a, b: a + b.to(torch.float32),
+                                     grads, gi)
+                loss = loss / grad_accum
+                grads = tree_map(lambda g: g / grad_accum, grads)
+            params, opt, metrics = adam_update(grads, opt, params, acfg)
+        return params, opt, {"loss": loss, **metrics}
+
+    return train_step
+
+
+def make_prefill_step(cfg: LMConfig):
+    """Full-sequence logits of a batch (the reference's prefill step: no
+    cache is filled). Over W4 packs with no context every packed dense
+    site runs K2's weight-only mode."""
+
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            return forward(params, cfg, batch["tokens"], batch.get("extra"))
+
+    return prefill_step
 
 
 def make_decode_fn(cfg: LMConfig, ctx=None):

@@ -1,27 +1,33 @@
-"""Unified LM family (dense / GQA / MoE / SSM / hybrid / audio / vlm):
-the serving part of ``repro.models.lm``, ported.
+"""Unified LM family (dense / GQA / MoE / SSM / hybrid / audio / vlm); port
+of ``repro.models.lm``.
+
+Three entry points per architecture, as the reference's:
+  forward(...)      full-sequence logits (training / prefill)
+  loss_fn(...)      next-token cross-entropy
+  decode_step(...)  one token against KV caches / SSM states (serving)
 
 The parameter tree is the reference's: ``embed``, ``final_norm``,
 optional ``lm_head``, ``vision_proj`` (vlm), ``dense_{i}`` for the
 ``first_k_dense`` leading layers, ``blocks`` (a list with one entry per
 position of ``layer_pattern``, each a tree stacked over ``n_groups``; the
 reference scans over that axis) and ``shared_attn`` (zamba2's block,
-applied after each group with the same weights). ``decode_step`` loops
-over the groups instead, and hands each layer its slice: a stacked
-``PackedW4`` becomes the layer's 2D pack (an expert stack, E of them)
-with a scalar (or per-output-channel) scale, so every dense site runs the
-fused W4A4 kernel K2 and every expert product K2's weight-only mode,
-never the stacked-pack oracle. Caches (KV, SSM state and conv buffer,
-and the shared block's KV cache per group) are stacked the same way and
+applied after each group with the same weights). ``forward`` and
+``decode_step`` loop over the groups instead, and hand each layer its
+slice: a stacked ``PackedW4`` becomes the layer's 2D pack (an expert
+stack, E of them) with a scalar (or per-output-channel) scale, so every
+dense site runs K2 (W4A4 under a serve-mode context, weight-only without
+one) and every expert product K2's weight-only mode, never the
+stacked-pack oracle. Decode's caches (KV, SSM state and conv buffer, and
+the shared block's KV cache per group) are stacked the same way and
 written in place.
 
-Ported: decode for every family, with sliding-window ring slots,
-``scale_embed``, sinusoidal positions, the logit softcap and
-``qkv_bias``. ``forward``/``loss_fn`` (the full-sequence prefill and the
-training slice) are ROADMAP Queue A item 12c; the config carries the
-fields only they read (``remat``, ``unroll``, ``q_chunk``, ``moe_impl``,
-``qk_norm``) so that a config converts field for field, and nothing here
-acts on them.
+``cfg.remat`` recomputes each group in the backward
+(``torch.utils.checkpoint``, non-reentrant) when grad is enabled, which
+changes no number; ``cfg.unroll`` needs nothing here (the groups are a
+Python loop either way). ``moe_impl == "ep"`` runs ``moe_apply_ep``,
+which without a mesh is ``moe_apply``, as in the reference.
+``loss_fn`` adds no MoE aux loss, as the reference's code (its module
+docstring says it does; ROADMAP Queue C).
 """
 from __future__ import annotations
 
@@ -30,17 +36,18 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.qmodule import PackedW4
 from repro_torch.kernels import ops
-from repro_torch.nn.attention import (AttnConfig, attn_decode, attn_init,
-                                      kv_cache_spec)
-from repro_torch.nn.embeddings import timestep_embedding
+from repro_torch.nn.attention import (AttnConfig, attn_apply, attn_decode,
+                                      attn_init, kv_cache_spec)
+from repro_torch.nn.embeddings import rope_frequencies, timestep_embedding
 from repro_torch.nn.layers import (dense_apply, dense_init, rmsnorm_apply,
                                    rmsnorm_init)
 from repro_torch.nn.mlp import mlp_apply, mlp_init
-from repro_torch.nn.moe import MoEConfig, moe_apply, moe_init
-from repro_torch.nn.ssm import (SSMConfig, ssm_decode, ssm_init,
+from repro_torch.nn.moe import MoEConfig, moe_apply, moe_apply_ep, moe_init
+from repro_torch.nn.ssm import (SSMConfig, ssm_apply, ssm_decode, ssm_init,
                                 ssm_state_spec)
 
 ATTN, SSM = "attn", "ssm"
@@ -69,7 +76,7 @@ class LMConfig:
     # depth pattern, period P entries of (kind, window|None, rope_theta)
     layer_pattern: tuple = ((ATTN, None, 10_000.0),)
     # --- moe ---
-    moe_impl: str = "global"         # global | ep (item 13 ports ep)
+    moe_impl: str = "global"         # global | ep (meshless until item 13)
     n_experts: int = 0
     top_k: int = 0
     moe_d_ff: int = 0
@@ -263,6 +270,175 @@ def lm_init(gen: torch.Generator, cfg: LMConfig, device="cpu") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# forward blocks
+# ---------------------------------------------------------------------------
+
+
+def _slice(tree: Any, g: int) -> Any:
+    """Group ``g`` of a stacked tree. A stacked pack (G, K, N/2) becomes
+    the layer's 2D pack with its scale and zero-point flattened to a
+    scalar or an (N,) vector (what K2 takes); an expert stack (G, E, K,
+    N/2) becomes the layer's (E, K, N/2) pack with the group's keepdims
+    (1, 1, 1|N) scale, which ``moe.expert_packs`` splits into E 2D packs
+    sharing it."""
+    if isinstance(tree, dict):
+        return {k: _slice(v, g) for k, v in tree.items()}
+    if isinstance(tree, PackedW4):
+        scale, zp = tree.scale[g], tree.zero_point[g]
+        if tree.packed.ndim == 3:
+            scale, zp = scale.reshape(-1), zp.reshape(-1)
+            if scale.numel() == 1:
+                scale, zp = scale.reshape(()), zp.reshape(())
+        return dataclasses.replace(tree, packed=tree.packed[g], scale=scale,
+                                   zero_point=zp, shape=tuple(tree.shape[1:]))
+    return tree[g]
+
+
+def _moe_block(bp: dict, x, cfg: LMConfig, *, ctx, site: str):
+    fn = moe_apply_ep if cfg.moe_impl == "ep" else moe_apply
+    return fn(bp["moe"], x, cfg.moe_cfg(), ctx=ctx, site=site)
+
+
+def _attn_block(bp: dict, h, cos, sin, acfg: AttnConfig, cfg: LMConfig, *,
+                ctx, site: str):
+    """Pre-norm attention, then the block's MoE or MLP, each a residual
+    (``shard_hint`` is a no-op on one device)."""
+    x = rmsnorm_apply(bp["ln1"], h)
+    h = h + attn_apply(bp["attn"], x, cos, sin, acfg, q_chunk=cfg.q_chunk,
+                       ctx=ctx, site=f"{site}/attn")
+    if "moe" in bp:
+        x = rmsnorm_apply(bp["ln2"], h)
+        h = h + _moe_block(bp, x, cfg, ctx=ctx, site=f"{site}/moe")
+    elif "mlp" in bp:
+        x = rmsnorm_apply(bp["ln2"], h)
+        h = h + mlp_apply(bp["mlp"], x, cfg.mlp_kind, ctx=ctx,
+                          site=f"{site}/mlp")
+    return h
+
+
+def _ssm_block(bp: dict, h, cfg: LMConfig, *, ctx, site: str):
+    x = rmsnorm_apply(bp["ln1"], h)
+    return h + ssm_apply(bp["ssm"], x, cfg.ssm_cfg(), ctx=ctx,
+                         site=f"{site}/ssm")
+
+
+def _shared_attn(sp: dict, h, cos, sin, cfg: LMConfig, *, ctx):
+    x = rmsnorm_apply(sp["ln"], h)
+    h = h + attn_apply(sp["attn"], x, cos, sin,
+                       cfg.attn_cfg(None, SHARED_THETA), q_chunk=cfg.q_chunk,
+                       ctx=ctx, site="shared_attn")
+    if "mlp" in sp:
+        x = rmsnorm_apply(sp["ln2"], h)
+        h = h + mlp_apply(sp["mlp"], x, cfg.mlp_kind, ctx=ctx,
+                          site="shared_attn/mlp")
+    return h
+
+
+def _rope_tables(cfg: LMConfig, s: int, device) -> dict:
+    """theta -> the f32 (S, hd/2) cos/sin tables the attention layers use
+    (the first_k_dense and shared blocks' too); ``{10000: (None, None)}``
+    for a model without attention."""
+    tables = {}
+
+    def add(theta):
+        if theta not in tables:
+            tables[theta] = rope_frequencies(cfg.hd, s, theta, device=device)
+
+    for kind, _, theta in cfg.layer_pattern:
+        if kind == ATTN:
+            add(theta)
+    if cfg.first_k_dense or cfg.shared_attn_every:
+        kind, _, theta = cfg.layer_pattern[0]
+        add(theta if kind == ATTN else SHARED_THETA)
+    return tables or {SHARED_THETA: (None, None)}
+
+
+def _embed_tokens(p: dict, cfg: LMConfig, tokens: torch.Tensor, extra):
+    """The token embeddings (scaled by sqrt(d_model) for gemma), the vlm's
+    projected patch embeddings over the first positions, and the
+    sinusoidal positions where the config has them."""
+    h = p["embed"][tokens].to(cfg.dtype)
+    if cfg.scale_embed:
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
+                             device=h.device).to(cfg.dtype)
+    if cfg.family == "vlm" and extra is not None:
+        img = dense_apply(p["vision_proj"], extra.to(cfg.dtype))
+        if img.shape[1] > h.shape[1]:
+            raise ValueError(f"{img.shape[1]} image tokens do not fit a "
+                             f"sequence of {h.shape[1]}")
+        # dynamic_update_slice at 0 along the sequence, out of place
+        h = torch.cat([img.to(h.dtype), h[:, img.shape[1]:]], dim=1)
+    if cfg.pos == "sinusoidal":
+        pos = timestep_embedding(torch.arange(h.shape[1], device=h.device),
+                                 cfg.d_model)
+        h = h + pos[None].to(cfg.dtype)
+    return h
+
+
+def _head(p: dict, cfg: LMConfig, h, ctx):
+    """Final norm, the tied readout or the untied head, the softcap."""
+    h = rmsnorm_apply(p["final_norm"], h)
+    if cfg.tie_embeddings:
+        logits = ops.tied_logits(h, p["embed"])
+    else:
+        logits = dense_apply(p["lm_head"], h, ctx=ctx, site="lm_head")
+    if cfg.logits_softcap:
+        logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
+    return logits
+
+
+def forward(p: dict, cfg: LMConfig, tokens: torch.Tensor,
+            extra: torch.Tensor | None = None, ctx=None) -> torch.Tensor:
+    """Full-sequence logits: tokens (B, S) [+ extra (B, n_img, d_vision)]
+    -> (B, S, vocab)."""
+    s = tokens.shape[1]
+    h = _embed_tokens(p, cfg, tokens, extra)
+    tables = _rope_tables(cfg, s, tokens.device)
+
+    for i in range(cfg.first_k_dense):
+        _, window, theta = cfg.layer_pattern[0]
+        h = _attn_block(p[f"dense_{i}"], h, *tables[theta],
+                        cfg.attn_cfg(window, theta), cfg, ctx=ctx,
+                        site="dense_block")
+
+    def group_body(h, group_params):
+        for pos_i, (kind, window, theta) in enumerate(cfg.layer_pattern):
+            bp, site = group_params[pos_i], f"block_p{pos_i}"
+            if kind == SSM:
+                h = _ssm_block(bp, h, cfg, ctx=ctx, site=site)
+            else:
+                h = _attn_block(bp, h, *tables[theta],
+                                cfg.attn_cfg(window, theta), cfg, ctx=ctx,
+                                site=site)
+        if cfg.shared_attn_every:
+            # the reference's choice: the first table built
+            h = _shared_attn(p["shared_attn"], h, *tables[next(iter(tables))],
+                             cfg, ctx=ctx)
+        return h
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for g in range(cfg.n_groups):
+        group_params = [_slice(stack, g) for stack in p["blocks"]]
+        if remat:
+            h = checkpoint(group_body, h, group_params, use_reentrant=False)
+        else:
+            h = group_body(h, group_params)
+    return _head(p, cfg, h, ctx)
+
+
+def loss_fn(p: dict, cfg: LMConfig, tokens: torch.Tensor,
+            extra: torch.Tensor | None = None, ctx=None) -> torch.Tensor:
+    """Next-token cross-entropy (mean over tokens), as logsumexp minus the
+    label's logit in f32. The label is picked with a gather: the value of
+    the reference's one-hot sum, without a (B, S, vocab) one-hot."""
+    logits = forward(p, cfg, tokens, extra, ctx=ctx)
+    lg = logits[:, :-1].to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    lab = lg.gather(-1, tokens[:, 1:, None].long())[..., 0]
+    return (lse - lab).mean()
+
+
+# ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
 
@@ -313,26 +489,6 @@ def init_caches(cfg: LMConfig, batch: int, s_max: int, device="cpu") -> dict:
 # ---------------------------------------------------------------------------
 # decode (serving)
 # ---------------------------------------------------------------------------
-
-
-def _slice(tree: Any, g: int) -> Any:
-    """Group ``g`` of a stacked tree. A stacked pack (G, K, N/2) becomes
-    the layer's 2D pack with its scale and zero-point flattened to a
-    scalar or an (N,) vector (what K2 takes); an expert stack (G, E, K,
-    N/2) becomes the layer's (E, K, N/2) pack with the group's keepdims
-    (1, 1, 1|N) scale, which ``moe.expert_packs`` splits into E 2D packs
-    sharing it."""
-    if isinstance(tree, dict):
-        return {k: _slice(v, g) for k, v in tree.items()}
-    if isinstance(tree, PackedW4):
-        scale, zp = tree.scale[g], tree.zero_point[g]
-        if tree.packed.ndim == 3:
-            scale, zp = scale.reshape(-1), zp.reshape(-1)
-            if scale.numel() == 1:
-                scale, zp = scale.reshape(()), zp.reshape(())
-        return dataclasses.replace(tree, packed=tree.packed[g], scale=scale,
-                                   zero_point=zp, shape=tuple(tree.shape[1:]))
-    return tree[g]
 
 
 def _attn_mlp(bp: dict, h, cache: dict, store_pos: int, valid_len: int,
@@ -415,11 +571,4 @@ def decode_step(p: dict, cfg: LMConfig, caches: dict, token: torch.Tensor,
                           site="shared_attn", attn_site="shared_attn",
                           ln="ln")
 
-    h = rmsnorm_apply(p["final_norm"], h)
-    if cfg.tie_embeddings:
-        logits = ops.tied_logits(h, p["embed"])
-    else:
-        logits = dense_apply(p["lm_head"], h, ctx=ctx, site="lm_head")
-    if cfg.logits_softcap:
-        logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
-    return logits, caches
+    return _head(p, cfg, h, ctx), caches

@@ -1,7 +1,16 @@
-"""GQA attention decode against a preallocated KV cache; port of the decode
-part of ``repro.nn.attention``.
+"""GQA attention: the full-sequence forward (prefill and training) in query
+chunks, and decode against a preallocated KV cache; port of
+``repro.nn.attention``.
 
-One new token attends over the cache. The cache dtype is bf16, fp8 (e4m3)
+``attn_apply`` attends a whole sequence causally (optionally within a
+sliding window), one chunk of ``q_chunk`` queries at a time, so the f32
+logits never exist at (S, S): per chunk they are (B, K, G, q_chunk, S).
+The reference computes it outside any Pallas kernel, and so does the
+port: plain torch, the logits in f32 over f32-cast operands (TF32 off),
+masked with -1e30, the softmax in f32, the weights rounded to the values'
+dtype and their product with the values in it (f32 reductions).
+
+In decode one new token attends over the cache. The cache dtype is bf16, fp8 (e4m3)
 or packed FP4 (signed E2M1 with an f16 scale per (token, kv-head), the
 MSFP-style cache compression). An FP4 cache takes two kernels a layer
 (``kernels/kv4.py``): ``kv4_store`` encodes the new token's k and v into
@@ -23,6 +32,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.common.device import no_tf32
 from repro_torch.kernels import kv4, ops
 from repro_torch.nn.embeddings import apply_rope
 from repro_torch.nn.layers import dense_apply, dense_init
@@ -71,6 +81,48 @@ def _qkv(p, x, cfg: AttnConfig, cos, sin, *, ctx=None, site=None):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     return q.reshape(b, s, cfg.n_kv, g, cfg.head_dim), k, v
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window) -> torch.Tensor:
+    """(qc, S) bool: key at or before the query, and within ``window`` of it
+    when one is given."""
+    m = k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        m &= (q_pos[:, None] - k_pos[None, :]) < window
+    return m
+
+
+def attn_apply(p: dict, x: torch.Tensor, cos, sin, cfg: AttnConfig, *,
+               q_chunk: int = 512, ctx=None,
+               site: str | None = None) -> torch.Tensor:
+    """Causal (optionally windowed) self-attention over a full sequence.
+    x: (B, S, D) -> (B, S, D); cos/sin: the (S, hd/2) RoPE tables."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, cos, sin, ctx=ctx, site=site)
+    scale = cfg.head_dim ** -0.5
+    qc = min(q_chunk, s)
+    if s % qc:
+        raise ValueError(f"attn_apply: sequence {s} is not a multiple of the "
+                         f"query chunk {qc}")
+    k_pos = torch.arange(s, device=x.device)
+    kf = k.to(torch.float32)
+    neg = torch.tensor(-1e30, dtype=torch.float32, device=x.device)
+    outs = []
+    for c0 in range(0, s, qc):
+        qi = q[:, c0:c0 + qc]                       # (b, qc, K, G, hd)
+        with no_tf32():
+            logits = torch.einsum("bqkgh,bskh->bkgqs", qi.to(torch.float32),
+                                  kf) * scale
+        if cfg.softcap:
+            logits = cfg.softcap * torch.tanh(logits / cfg.softcap)
+        m = _mask(c0 + torch.arange(qc, device=x.device), k_pos, cfg.window)
+        logits = torch.where(m, logits, neg)
+        w = torch.softmax(logits, dim=-1).to(v.dtype)
+        with no_tf32(), kv4.f32_reductions():
+            o = torch.einsum("bkgqs,bskh->bqkgh", w, v)
+        outs.append(o.reshape(b, qc, cfg.n_heads * cfg.head_dim))
+    out = torch.cat(outs, dim=1)
+    return dense_apply(p["wo"], out, ctx=ctx, site=f"{site}/wo")
 
 
 def kv_cache_spec(batch: int, s_max: int, cfg: AttnConfig,

@@ -1,6 +1,7 @@
 """Token-choice top-k MoE with fixed expert capacity (sort-based
-dispatch); port of ``repro.nn.moe`` (``moe_apply``; the expert-parallel
-``moe_apply_ep`` and the load-balance loss are not ported yet).
+dispatch); port of ``repro.nn.moe``: ``moe_apply``, the load-balance
+loss, and ``moe_apply_ep`` as the reference runs it without a device mesh
+(its shard_map path is ROADMAP Queue A item 13).
 
 Dispatch sorts the (T*k) token-expert assignments by expert id (stably,
 as ``jnp.argsort``), ranks each entry within its expert's run with a
@@ -178,3 +179,25 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, *, ctx=None,
         yt = yt + glu_mlp_apply(p["shared"], xt, act=cfg.act, ctx=ctx,
                                 site=f"{site}/shared" if site else None)
     return yt.reshape(*lead, d)
+
+
+def moe_apply_ep(p: dict, x: torch.Tensor, cfg: MoEConfig, *,
+                 model_axis: str = "model", ctx=None,
+                 site: str | None = None) -> torch.Tensor:
+    """The expert-parallel MoE without a mesh: the reference falls back to
+    ``moe_apply`` when no mesh has a ``model_axis`` (``repro/nn/moe.py:
+    174-175``), and the port has no mesh yet (ROADMAP Queue A item 13)."""
+    return moe_apply(p, x, cfg, ctx=ctx, site=site)
+
+
+def aux_load_balance_loss(logits: torch.Tensor, gate_ids: torch.Tensor,
+                          cfg: MoEConfig) -> torch.Tensor:
+    """Switch-style load-balance auxiliary loss: n_experts * sum over
+    experts of (mean router probability) x (share of tokens whose first
+    choice it is). logits: (T, E); gate_ids: (T, k)."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    me = probs.mean(dim=0)
+    one_hot = torch.nn.functional.one_hot(gate_ids[..., 0].long(),
+                                          cfg.n_experts).to(torch.float32)
+    ce = one_hot.mean(dim=0)
+    return cfg.n_experts * torch.sum(me * ce)

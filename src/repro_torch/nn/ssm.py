@@ -1,5 +1,13 @@
-"""Mamba2 block, its decode step; port of the decode part of
-``repro.nn.ssm``.
+"""Mamba2 block: the full-sequence forward (chunked SSD) and the decode
+step; port of ``repro.nn.ssm``.
+
+The forward (``ssm_apply``) runs the causal depthwise conv, then the SSD
+scan (arXiv:2405.21060 §6) one chunk of ``chunk`` positions at a time,
+carrying the inter-chunk state in f32, so the (H, chunk, chunk) decay
+matrix exists for one chunk only. Its einsums of three and four operands
+are contracted pairwise in the order ``opt_einsum`` gives the reference's
+``jnp.einsum`` at these shapes, each pair summed in f32 and rounded once
+to the model's dtype (``_contract``).
 
 Decode is the dual recurrence: state' = exp(dt*A) * state + dt * B ⊗ x,
 read out through C, over a rolling causal-conv buffer of the last
@@ -14,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.common.device import no_tf32
 from repro_torch.nn.layers import (dense_apply, dense_init, rmsnorm_apply,
@@ -96,6 +105,93 @@ def _contract(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     and rounded once: XLA's dot on exact bf16 products."""
     with no_tf32():
         return torch.einsum(eq, a.float(), b.float()).to(a.dtype)
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """Depthwise causal conv over the sequence, then silu. xbc: (B, S, C);
+    w: (K, C). The taps are summed in the reference's order (Python's
+    ``sum``: tap 0 first)."""
+    k, s = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    out = sum(pad[:, i:i + s, :] * w[i] for i in range(k))
+    return silu(out + b)
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """(..., s) -> (..., s, s) lower-triangular segment sums: entry (i, j)
+    is a[j+1] + ... + a[i], -inf above the diagonal."""
+    s = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=a.device))
+    return torch.where(mask, diff, torch.tensor(float("-inf"),
+                                                dtype=diff.dtype,
+                                                device=a.device))
+
+
+def ssd_scan(x: torch.Tensor, dt_a: torch.Tensor, b_mat: torch.Tensor,
+             c_mat: torch.Tensor, chunk: int, init_state=None):
+    """Chunked SSD. x: (B, S, H, P) (already dt-scaled), dt_a: (B, S, H)
+    log-decay, b_mat/c_mat: (B, S, H, N) (groups broadcast to heads).
+    Returns y (B, S, H, P) in x's dtype and the final state (B, H, P, N)
+    in f32."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    if s % chunk:
+        raise ValueError(f"ssd_scan: sequence {s} is not a multiple of the "
+                         f"chunk {chunk}")
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device)
+             if init_state is None else init_state.to(torch.float32))
+    ys = []
+    for c0 in range(0, s, chunk):
+        xk, bk, ck = (t[:, c0:c0 + chunk] for t in (x, b_mat, c_mat))
+        dtype = ck.dtype
+        a_t = dt_a[:, c0:c0 + chunk].to(torch.float32).movedim(-1, 1)
+        cum = torch.cumsum(a_t, dim=-1)                   # (B, H, chunk)
+        li = torch.exp(_segsum(a_t))                      # (B, H, l, s)
+        # blhn,bshn,bhls,bshp->blhp as (C B^T) . L, then @ x
+        cb = _contract("blhn,bshn->bhls", ck, bk)
+        y_diag = _contract("bhls,bshp->blhp", cb * li.to(dtype), xk)
+        # bshn,bhs,bshp->bhpn as B^T (decay * x)
+        decay = torch.exp(cum[..., -1:] - cum).to(bk.dtype)
+        xw = xk * decay.movedim(1, -1)[..., None]
+        chunk_state = _contract("bshn,bshp->bhpn", bk, xw)
+        # blhn,bhpn,bhl->blhp as (C state) * decay
+        out_decay = torch.exp(cum).to(dtype)
+        y_off = (_contract("blhn,bhpn->blhp", ck, state.to(dtype))
+                 * out_decay.movedim(1, -1)[..., None])
+        state = (torch.exp(cum[..., -1])[..., None, None] * state
+                 + chunk_state.to(torch.float32))
+        ys.append(y_diag + y_off)
+    return torch.cat(ys, dim=1), state
+
+
+def ssm_apply(p: dict, x: torch.Tensor, cfg: SSMConfig, *, ctx=None,
+              site: str | None = None) -> torch.Tensor:
+    """Full-sequence Mamba2 block. x: (B, S, D) -> (B, S, D). The conv
+    runs in the model's dtype (decode's conv buffer is bf16; here there is
+    none)."""
+    bsz, s, _ = x.shape
+    zxbcdt = dense_apply(p["in_proj"], x, ctx=ctx, site=f"{site}/in_proj")
+    z, xbc, dt = _split_proj(zxbcdt, cfg)
+    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    di, g, n, h = cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads
+    xs = xbc[..., :di].reshape(bsz, s, h, cfg.headdim)
+    rep = h // g
+    b_mat = torch.repeat_interleave(
+        xbc[..., di:di + g * n].reshape(bsz, s, g, n), rep, dim=2)
+    c_mat = torch.repeat_interleave(
+        xbc[..., di + g * n:].reshape(bsz, s, g, n), rep, dim=2)
+    dt = softplus(dt.to(torch.float32) + p["dt_bias"])            # (B,S,H)
+    a = -torch.exp(p["A_log"].to(torch.float32))                  # (H,)
+    y, _ = ssd_scan(xs * dt[..., None].to(xs.dtype), dt * a, b_mat, c_mat,
+                    cfg.chunk)
+    y = y + xs * p["D"][None, None, :, None].to(xs.dtype)
+    y = y.reshape(bsz, s, di) * silu(z)
+    y = rmsnorm_apply(p["norm"], y)
+    return dense_apply(p["out_proj"], y, ctx=ctx, site=f"{site}/out_proj")
 
 
 def ssm_decode(p: dict, x: torch.Tensor, cache: dict, cfg: SSMConfig, *,

@@ -972,3 +972,107 @@ def test_pack_weight_on_card_equals_cpu_bytes(cuda, monkeypatch, e, m,
     assert torch.equal(card.zero_point.cpu(), host.zero_point)
     monkeypatch.setattr(qmodule, "true_div", lambda t, c: t * (1.0 / c))
     assert not torch.equal(pack_weight(w, qp).packed, host.packed)
+
+
+# ---------------------------------------------------------------------------
+# the full-sequence forward and the train step (prefill and training)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,dt,act", [
+    (16384, 576, 576, torch.bfloat16, False),   # smollm prefill, q/o
+    (16384, 1536, 576, torch.bfloat16, True),   # smollm prefill, down
+    (8192, 2560, 10448, torch.bfloat16, False),  # zamba2 prefill, in_proj
+    (4096, 576, 1536, torch.float32, True),
+    (320, 5120, 8192, torch.bfloat16, False)])  # llama4 experts at T 4096
+def test_k2_at_prefill_shapes_matches_plain(cuda, m, k, n, dt, act):
+    """K2 in both modes at M = B x S rows (the prefill's regime), one
+    launch a call, held to the sum-order rule."""
+    x, args, fmt = _dense_case(S, m, k, n, dt, cuda, act)
+    before = k2.w4_matmul_2d_cuda.launches
+    got = k2.w4_matmul_2d(x, *args, **fmt)
+    assert k2.w4_matmul_2d_cuda.launches == before + 1
+    _assert_order_close(got, k2.w4_matmul_2d_plain(x, *args, **fmt),
+                        _dense_mag(x, args, fmt, k, n), k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["smollm-135m", "zamba2-2.7b",
+                                  "llama4-scout-17b-a16e", "gemma3-4b"])
+@pytest.mark.parametrize("mode", ["w4a4", "weight-only"])
+def test_forward_on_card_matches_cpu(cuda, arch, mode):
+    """The arch's smoke config in f32 over packed ``dyadic_weights``, B 2 x
+    S 16: ``forward`` under a serve context (E2M1 acts fused into K2, K1
+    before an untied head) or ``make_prefill_step`` (no context: K2's
+    weight-only mode) on the card vs the CPU's plain versions. Only the
+    kernels and the dense products may run on the card. Tolerance: max
+    abs error <= 1e-4 * max |logit| and the same argmax (the sums are
+    exact; the torch ops between the kernels differ by ulps)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.lm import forward
+    cfg = get_config(arch, smoke=True)
+    params = quantize_lm_for_serving(dyadic_weights(lm_init(
+        torch.Generator().manual_seed(7), cfg)), per_channel=True)
+    toks = torch.randint(0, cfg.vocab, (2, 16),
+                         generator=torch.Generator().manual_seed(8))
+
+    def run(dev):
+        p = _tree_to(params, dev)
+        with torch.no_grad():
+            if mode == "weight-only":
+                return make_prefill_step(cfg)(p, {"tokens": toks.to(dev)})
+            ctx = QuantContext("serve", act_qps={"*": QuantizerParams(
+                0, 2, 1, 4, torch.tensor(6.0, device=dev))})
+            return forward(p, cfg, toks.to(dev), ctx=ctx)
+
+    ops.reset_routes()
+    got = run(cuda).cpu()
+    kernel_ops = {op for (op, r) in ops.ROUTES if r == "cuda"}
+    assert {r for (_, r) in ops.ROUTES} <= {"cuda", "torch", "torch_f32"}
+    assert ("w4a4_matmul" in kernel_ops) == (mode == "w4a4")
+    assert ("msfp_quantize" in kernel_ops) == (
+        mode == "w4a4" and not cfg.tie_embeddings)
+    want = run(torch.device("cpu"))
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-370m"])
+def test_lm_train_step_on_card_matches_cpu(cuda, arch):
+    """One make_train_step (Adam, lr 1e-3) of the arch's f32 smoke config,
+    B 2 x S 16, on the card (TF32 off, backward included) vs the CPU:
+    the loss within 1e-5 relative; each gradient-driven quantity by the
+    CPU tests' rules (tests/test_torch_train.py): the parameters within
+    0.1 * lr, the moments within 1e-5 of each leaf's largest value (or
+    1e-3 of the tree's). No kernel runs in training."""
+    from repro_torch.common.tree import flatten_paths
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adam import AdamConfig, adam_init
+    cfg = get_config(arch, smoke=True)
+    params = lm_init(torch.Generator().manual_seed(9), cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 16),
+                         generator=torch.Generator().manual_seed(10))
+    acfg = AdamConfig(lr=1e-3)
+
+    def run(dev):
+        p = _tree_to(params, dev)
+        return make_train_step(cfg, acfg)(p, adam_init(p, acfg),
+                                          {"tokens": toks.to(dev)})
+
+    ops.reset_routes()
+    gp, gopt, gm = run(cuda)
+    assert {r for (_, r) in ops.ROUTES} <= {"torch", "torch_f32"}
+    wp, wopt, wm = run(torch.device("cpu"))
+    assert float(gm["loss"]) == pytest.approx(float(wm["loss"]), rel=1e-5)
+    g, w = flatten_paths(gp), flatten_paths(wp)
+    assert max(float((g[k].cpu() - w[k]).abs().max()) for k in w) \
+        <= 0.1 * acfg.lr
+    for name in ("m", "v"):
+        g, w = flatten_paths(gopt[name]), flatten_paths(wopt[name])
+        top = max(float(v.abs().max()) for v in w.values())
+        for k in w:
+            scale = max(float(w[k].abs().max()), 1e-3 * top)
+            assert float((g[k].cpu() - w[k]).abs().max()) <= 1e-5 * scale, k
