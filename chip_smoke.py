@@ -139,18 +139,34 @@ Phases, each fatal on failure (exit code 1, no result line):
      sensitivity within ULP_SHARE of the limit; (c) launch/train.py at full width (TRAIN_RUNS:
      smollm-135m 8 steps, checkpoints every 4, and mamba2-370m 4 steps):
      finite losses, no contained crash, smollm's resumed run (4 steps, the
-     launcher restarted to 8) against the uninterrupted one
-     (RESUME_*_LIMIT), one step profiled; (d) five steps on a fixed batch
+     launcher restarted to 8) equal to the uninterrupted one bit for bit
+     (losses, parameters, Adam state; the token stream restarted must
+     break it), one step of the launcher's step function profiled
+     meshless; (d) five steps on a fixed batch
      lower smollm's loss, and one f32 loss and gradient card vs CPU
      (TRAIN_*_LIMIT) which TF32 in the backward must break. Phases 3-4
      hold and time K2 at the prefill shapes in both modes and K1 at (B x S,
      d_model);
-  14. a ``kernels`` JSON line (each kernel's launches in all and per path:
+  14. the distribution layer on a 1-rank NCCL mesh at full width
+     (mesh_phase; the process group is made once after the build, since
+     the train and serve launchers run on a mesh from phase 7 on, and
+     destroyed at the end): (a) smollm-135m (B 8 x S 512, 4 steps) through
+     launch/train.py, parameters and batches DTensors, against the
+     meshless make_train_step on plain tensors from the same seed: every
+     loss, parameter and Adam moment bit for bit, both step walls printed;
+     (b) smollm-135m served through launch/serve.py under the host mesh
+     (phase 7's setting) against the same run meshless: token ids and the
+     K2, kv4_store and kv4_attend launches a step identical; (c)
+     llama4-scout (LLAMA4_DEPTH layers, bf16 weights drawn on the card, B 8
+     x S 512): one forward with moe_impl "ep" (the all-to-all over the
+     model axis) against "global", logits bit for bit; (d) phase 13(c)'s
+     resume, bit for bit; the phase's wall printed;
+  15. a ``kernels`` JSON line (each kernel's launches in all and per path:
      per forward for ddim-cifar10, per decode step for smollm-135m and
      phase 12's models, per train step for the pipeline, per forward or
      decode step by model for the gateway's mixed_model run, per forward
-     for the fleet's runs and phase 13's prefill runs), the card line, and
-     the result line.
+     for the fleet's runs, phase 13's prefill runs and phase 14's meshed
+     decode), the card line, and the result line.
 Needs one card; exits non-zero without one or without the repo around it.
 """
 from __future__ import annotations
@@ -1551,7 +1567,7 @@ def lm_checks(dev, steps: int = 4) -> dict:
         raw = lm_init(torch.Generator().manual_seed(0), cfg)
         dname = str(dt)[6:]
         for kind, params in (("dyadic", dyadic_weights(raw)), ("random", raw)):
-            packed = quantize_lm_for_serving(params)
+            packed = quantize_lm_for_serving(params, searched=False)
             g = run(cfg, packed, dev)
             w = run(cfg, packed, torch.device("cpu"))
             if not np.isfinite(g).all():
@@ -2871,7 +2887,8 @@ def family_decode_checks(dev) -> dict:
         cfg = dataclasses.replace(family_config(arch, depth),
                                   dtype=getattr(torch, dname), kv_dtype="fp4")
         packed = quantize_lm_for_serving(dyadic_weights(lm_init(
-            torch.Generator(device=dev).manual_seed(0), cfg, dev)))
+            torch.Generator(device=dev).manual_seed(0), cfg, dev)),
+            searched=False)
         host = _tree_to(packed, torch.device("cpu"))
         toks = torch.randint(0, cfg.vocab, (B, steps),
                              generator=torch.Generator().manual_seed(1))
@@ -3094,7 +3111,8 @@ def prefill_runs(dev) -> dict:
     for arch, depth, b, s in PREFILL_RUNS:
         cfg = family_config(arch, depth)
         params = quantize_lm_for_serving(lm_init(
-            torch.Generator(device=dev).manual_seed(0), cfg, dev))
+            torch.Generator(device=dev).manual_seed(0), cfg, dev),
+            searched=False)
         toks = torch.randint(0, cfg.vocab, (b, s), device=dev,
                              generator=torch.Generator(device=dev)
                              .manual_seed(1))
@@ -3348,7 +3366,7 @@ def prefill_checks(dev) -> dict:
             free_card()
             packed = quantize_lm_for_serving(dyadic_weights(lm_init(
                 torch.Generator(device=dev).manual_seed(0), cfg, dev),
-                shift=shift))
+                shift=shift), searched=False)
             packs[arch, shift] = (packed, _tree_to(packed,
                                                    torch.device("cpu")))
         packed, host = packs[arch, shift]
@@ -3408,18 +3426,27 @@ def prefill_checks(dev) -> dict:
 # the launcher restarted from that checkpoint to 8
 TRAIN_RUNS = (("smollm-135m", 8, 512, 8, 4),
               ("mamba2-370m", 4, 1024, 4, 100))
-# the resumed run against the uninterrupted one, steps 5-8: each loss
-# within RESUME_LOSS_LIMIT (relative), which the control, the reference's
-# resume (its token stream started again from the first batch), must
-# break; the parameters' relative Frobenius error within
-# RESUME_PARAM_LIMIT, a bound on the drift only. The gradients' reductions
-# are not deterministic on the card (the embedding's backward adds with
-# atomics, into bf16), so the two runs need not agree bit for bit: one run
-# read losses 7.4e-05 apart, the parameters 1.65e-03, Adam's m
-# 0.039 and v 0.029; the control read 0.029 on the loss, 6.0e-03 on the
-# parameters (NVIDIA H100 80GB HBM3, 700.00 W).
-RESUME_LOSS_LIMIT = 1e-3
-RESUME_PARAM_LIMIT = 5e-3
+# the resumed run against the uninterrupted one: every loss and every
+# leaf of the parameters and Adam's state equal bit for bit, which the
+# control, the reference's resume (its token stream started again from the
+# first batch), must break. A run is deterministic on the card: the
+# batches are drawn by an inverse-CDF lookup (data/synthetic.py:zipf_cdf),
+# since torch.multinomial's scan over the 1-D distribution moved up to 2 of
+# 4096 draws between runs (the cause of the drift PR 20 read, 7.4e-05 on
+# the losses and 1.65e-03 on the parameters); the embedding's backward
+# read the same bits in 10 runs of 10 (NVIDIA H100 80GB HBM3, 700.00 W).
+
+
+def bits_equal(a, b) -> bool:
+    """Two trees of tensors, leaf for leaf the same dtype and bytes."""
+    import torch
+    from repro_torch.common.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.reshape(-1).view(torch.uint8),
+                        y.reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
 
 
 def tree_rel(a, b) -> float:
@@ -3455,9 +3482,9 @@ def restarted_stream():
 def resume_check(argv, cfg, steps: int, tmp: str, straight: dict) -> dict:
     """``steps // 2`` steps, then the launcher restarted from that
     checkpoint to ``steps``, against the uninterrupted run ``straight``:
-    the losses of the resumed steps and the parameters (Adam's moments
-    printed beside them) held to RESUME_*_LIMIT; the same resume under
-    ``restarted_stream`` must break the loss limit."""
+    the losses and the final parameters and Adam state bit for bit (the
+    relative errors printed beside); the same resume under
+    ``restarted_stream`` must break it."""
     import shutil
 
     from repro_torch.launch import train
@@ -3487,26 +3514,26 @@ def resume_check(argv, cfg, steps: int, tmp: str, straight: dict) -> dict:
                      "v_rel_frobenius": tree_rel(o["v"], so["v"]),
                      "bit_exact": (first["losses"] + r["losses"]
                                    == straight["losses"]
-                                   and tree_rel(r["state"],
-                                                straight["state"]) == 0.0)}
+                                   and bits_equal(r["state"],
+                                                  straight["state"]))}
     res, ctl = out["resumed"], out["control"]
     print(f"train resumed ({half} steps, then the launcher restarted from "
           f"step {half} to {steps}) vs uninterrupted: losses "
           f"{first['losses'] + res['losses']} against {straight['losses']}; "
-          f"largest loss relative error {res['loss_rel_err']:.3g} (held to "
-          f"<= {RESUME_LOSS_LIMIT:g}); relative Frobenius error of the "
-          f"parameters {res['params_rel_frobenius']:.3g} (held to <= "
-          f"{RESUME_PARAM_LIMIT:g}), of Adam's m "
+          f"bit-exact {res['bit_exact']} (held to equality of every loss "
+          f"and every leaf); largest loss relative error "
+          f"{res['loss_rel_err']:.3g}, relative Frobenius error of the "
+          f"parameters {res['params_rel_frobenius']:.3g}, of Adam's m "
           f"{res['m_rel_frobenius']:.3g} and v {res['v_rel_frobenius']:.3g};"
-          f" bit-exact {res['bit_exact']}; control (the token stream "
-          f"restarted): loss {ctl['loss_rel_err']:.3g}, parameters "
+          f" control (the token stream restarted): bit-exact "
+          f"{ctl['bit_exact']}, loss {ctl['loss_rel_err']:.3g}, parameters "
           f"{ctl['params_rel_frobenius']:.3g}", flush=True)
-    if res["loss_rel_err"] > RESUME_LOSS_LIMIT \
-            or res["params_rel_frobenius"] > RESUME_PARAM_LIMIT:
-        fail("the resumed run does not match the uninterrupted one")
-    if ctl["loss_rel_err"] <= RESUME_LOSS_LIMIT:
-        fail(f"control fault 'token stream restarted' passes the resume "
-             f"check ({ctl['loss_rel_err']:.3g} <= {RESUME_LOSS_LIMIT:g})")
+    if not res["bit_exact"]:
+        fail("the resumed run does not equal the uninterrupted one bit for "
+             "bit")
+    if ctl["bit_exact"]:
+        fail("control fault 'token stream restarted' passes the resume "
+             "check")
     return {k: {f: v for f, v in r.items() if f != "losses"}
             for k, r in out.items()}
 
@@ -3518,6 +3545,7 @@ def train_runs(dev, tmp: str) -> dict:
     no contained crash (``restarts`` 0), then one more step of the
     launcher's own train step, on its next batch, profiled; smollm's resumed run held to the uninterrupted
     one (``resume_check``)."""
+    from repro_torch.common.sharding import to_full
     from repro_torch.launch import train
     out = {}
     for arch, b, s, steps, every in TRAIN_RUNS:
@@ -3537,7 +3565,8 @@ def train_runs(dev, tmp: str) -> dict:
             fail(f"{name}: the trainer contained {r['restarts']} crashes")
         walls = sorted(h.wall for h in r["history"])
         med = walls[len(walls) // 2]
-        batch = r["data"](steps)
+        # the launcher's own step, meshless: its state comes back whole
+        batch = {k: to_full(v) for k, v in r["data"](steps).items()}
         params, opt = r["state"]
         step = r["step"]
         t1 = time.perf_counter()
@@ -3695,6 +3724,150 @@ def prefill_train_phase(dev) -> dict:
     return out
 
 
+# phase 14(a): the launcher's run under the mesh and the meshless control
+MESH_TRAIN_ARGV = ["--arch", "smollm-135m", "--batch", "8", "--seq", "512",
+                   "--steps", "4", "--ckpt-every", "100", "--device", "cuda"]
+
+
+def mesh_train(dev, tmp: str) -> dict:
+    """Phase 14(a): smollm-135m through launch/train.main on the 1-rank
+    mesh (DTensor parameters and batches) against its step function on
+    plain tensors from the same seed and batches: losses, parameters and
+    Adam state bit for bit; the median step walls of both."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.lm import lm_init
+    from repro_torch.optim.adam import AdamConfig, adam_init
+    cfg = family_config("smollm-135m")
+    argv = MESH_TRAIN_ARGV + ["--ckpt-dir", f"{tmp}/mesh-train"]
+    meshed = train.main(argv, cfg=cfg)
+    args = train.build_parser().parse_args(argv)
+    acfg = AdamConfig(lr=args.lr, schedule="linear_warmup_cosine",
+                      warmup_steps=max(10, args.steps // 20),
+                      total_steps=args.steps)
+    params = lm_init(torch.Generator(device=dev).manual_seed(args.seed),
+                     cfg, dev)
+    opt, step = adam_init(params, acfg), make_train_step(cfg, acfg)
+    losses, walls = [], []
+    for i in range(args.steps):
+        batch = train.batch_of(cfg, args, dev, i)
+        _sync()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        _sync()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    mesh_walls = sorted(h.wall for h in meshed["history"])
+    out = {"losses": losses, "mesh_losses": meshed["losses"],
+           "bit_exact": (losses == meshed["losses"]
+                         and bits_equal((params, opt), meshed["state"])),
+           "mesh_step_wall_ms_median": mesh_walls[len(mesh_walls) // 2] * 1e3,
+           "plain_step_wall_ms_median": sorted(walls)[len(walls) // 2] * 1e3,
+           "mesh_step_walls_ms": [h.wall * 1e3 for h in meshed["history"]],
+           "plain_step_walls_ms": [w * 1e3 for w in walls]}
+    print(f"mesh train smollm-135m bf16 B 8 x S 512, {args.steps} steps on "
+          f"the 1-rank mesh vs meshless: losses {meshed['losses']} vs "
+          f"{losses}; bit-exact {out['bit_exact']} (held to equality of "
+          f"every loss, parameter and moment); median step wall "
+          f"{out['mesh_step_wall_ms_median']:.1f} ms meshed (DTensor) vs "
+          f"{out['plain_step_wall_ms_median']:.1f} ms meshless; walls "
+          f"{[round(w, 1) for w in out['mesh_step_walls_ms']]} vs "
+          f"{[round(w, 1) for w in out['plain_step_walls_ms']]}", flush=True)
+    if not out["bit_exact"]:
+        fail("the meshed train run does not equal the meshless one")
+    del params, opt, meshed
+    free_card()
+    return out
+
+
+def mesh_serve() -> dict:
+    """Phase 14(b): smollm-135m served through launch/serve.main under the
+    host mesh (phase 7's argv, counted as a path) against the same run
+    meshless (``serve.serve``): token ids and launches a step equal."""
+    import torch
+    from repro_torch.launch import serve
+    args = serve.build_parser().parse_args(LM_ARGV)
+    plain = serve.serve(args, torch.device("cuda"))
+    run = driven("smollm-135m serve under the mesh",
+                 lambda: serve.main(LM_ARGV), LM_KERNELS,
+                 {("tied_logits", "torch")})
+    meshed = run["out"]
+    same = (torch.equal(plain["tokens"], meshed["tokens"])
+            and plain["launches_per_step"] == meshed["launches_per_step"])
+    print(f"mesh serve smollm-135m W4A4 FP4-KV B {B}: token ids and launches "
+          f"a step identical to the meshless run: {same} (launches a step "
+          f"{meshed['launches_per_step']}); {meshed['tok_s']:.2f} tok/s "
+          f"meshed vs {plain['tok_s']:.2f} meshless", flush=True)
+    if not same:
+        fail("the meshed serve run differs from the meshless one")
+    return {"counts": run["counts"], "units": meshed["steps"],
+            "unit": "decode step", "shapes": run["shapes"],
+            "tok_s": meshed["tok_s"], "plain_tok_s": plain["tok_s"],
+            "identical": same}
+
+
+def mesh_moe(dev, mesh) -> dict:
+    """Phase 14(c): llama4-scout at LLAMA4_DEPTH layers, bf16 weights drawn
+    on the card, one B 8 x S 512 forward with moe_impl "ep" on the 1-rank
+    mesh against "global": the logits bit for bit. On one rank the
+    expert-parallel path dispatches the same tokens into the same
+    capacity and its all-to-all is a copy, so any difference is a fault
+    of the path."""
+    import dataclasses
+
+    import torch
+    from repro_torch.common.tree import tree_bytes
+    from repro_torch.launch.mesh import mesh_scope
+    from repro_torch.models.lm import forward, lm_init
+    cfg = family_config("llama4-scout-17b-a16e", LLAMA4_DEPTH)
+    params = lm_init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    toks = torch.randint(0, cfg.vocab, (B, 512), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    out, walls = {}, {}
+    with torch.no_grad(), mesh_scope(mesh):
+        for impl in ("global", "ep"):
+            c = dataclasses.replace(cfg, moe_impl=impl)
+            _sync()
+            t0 = time.perf_counter()
+            out[impl] = forward(params, c, toks)
+            _sync()
+            walls[impl] = (time.perf_counter() - t0) * 1e3
+    same = torch.equal(out["ep"].view(torch.int16),
+                       out["global"].view(torch.int16))
+    gib = tree_bytes(params) / 2**30
+    print(f"mesh moe llama4-scout-17b-a16e depth {LLAMA4_DEPTH} bf16 "
+          f"({gib:.1f} GiB of weights) B {B} x S 512: moe_impl ep vs global "
+          f"logits bit for bit {same}; forward wall {walls['ep']:.1f} ms ep, "
+          f"{walls['global']:.1f} ms global; reduced: n_layers "
+          f"{cfg.n_layers} of {family_config('llama4-scout-17b-a16e').n_layers},"
+          f" widths as published", flush=True)
+    if not same:
+        fail("the expert-parallel forward differs from the global one")
+    del params, out
+    free_card()
+    return {"bit_exact": same, "forward_ms": walls, "weights_gib": gib}
+
+
+def mesh_phase(dev, resume: dict) -> dict:
+    """Phase 14: (a) mesh_train, (b) mesh_serve, (c) mesh_moe on the
+    1-rank mesh the process group carries; (d) phase 13(c)'s resume
+    (``resume``), held bit for bit there; the phase's wall."""
+    from repro_torch.launch.mesh import make_host_mesh
+    print("--- the distribution layer on a 1-rank mesh at full width",
+          flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"train": mesh_train(dev, tmp)}
+    out["serve"] = mesh_serve()
+    out["moe_ep"] = mesh_moe(dev, make_host_mesh())
+    out["resume_bit_exact"] = resume["resumed"]["bit_exact"]
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"mesh phase wall {out['wall_s']:.1f} s (the resume, phase 13(c): "
+          f"bit-exact {out['resume_bit_exact']})", flush=True)
+    return out
+
+
 # a kernel's instances in a profile: K2/K3 carry their operand loader's
 # name (split-K reduction included; K3's as the template argument
 # "ConvA<", since qdq_conv2d's kernel takes a "ConvArgs"), the kv4
@@ -3765,6 +3938,10 @@ def main() -> None:
     built = build.build()
     print(f"built {built or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    # the 1-rank NCCL group every meshed launcher run shares (phase 14)
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_world
+    init_world(dev)
 
     rows = kernel_checks(dev)
     rows.update(kv4_checks(dev))
@@ -3799,6 +3976,7 @@ def main() -> None:
     gateway = gateway_phase(dev, golden["out"]["digest"])
     families = family_phase(dev)
     lm13 = prefill_train_phase(dev)
+    meshed = mesh_phase(dev, lm13["train"]["smollm-135m train"]["resume"])
     tmp_dir.cleanup()
     rows["qdq_conv2d"].extend(pipeline["io_rows"])
     # each path's own launches, per forward (diffusion), per decode step
@@ -3811,7 +3989,8 @@ def main() -> None:
              **{f"gateway mixed_model {name}": run for name, run in
                 gateway["mixed_model"]["paths"].items()},
              **gateway["fleet"]["paths"], **families["runs"],
-             **lm13["prefill"]}
+             **lm13["prefill"], "smollm-135m serve under the mesh":
+                 meshed["serve"]}
     by_path = {k: {name: {"launches": run["counts"][k],
                           f"per_{run['unit'].replace(' ', '_')}":
                               run["counts"][k] / run["units"]}
@@ -3902,11 +4081,20 @@ def main() -> None:
                           "checks": lm13["checks"], "train": lm13["train"],
                           "train_checks": lm13["train_checks"],
                           "wall_s": lm13["wall_s"]},
+                      "mesh": {"train": meshed["train"],
+                               "serve": {k: v for k, v in
+                                         meshed["serve"].items()
+                                         if k not in ("counts", "shapes")},
+                               "moe_ep": meshed["moe_ep"],
+                               "resume_bit_exact":
+                                   meshed["resume_bit_exact"],
+                               "wall_s": meshed["wall_s"]},
                       "lm": {"tok_s": lm_serve["tok_s"],
                              "peak_mib": lm_serve["peak_mib"],
                              "launches_per_step":
                                  lm_serve["launches_per_step"], **lm}}),
           flush=True)
+    dist.destroy_process_group()
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

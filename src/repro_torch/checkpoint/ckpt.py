@@ -1,6 +1,5 @@
 """Checkpoints: one npz of arrays and a manifest a step, atomic, keep-k,
-verified on restore; port of ``repro.checkpoint.ckpt`` (one device: the
-reference's restore onto a new mesh is ROADMAP Queue A item 13).
+verified on restore, mesh-independent; port of ``repro.checkpoint.ckpt``.
 
 Layout, as the reference's: ``<dir>/step_%010d/`` holds ``arrays.npz``
 (leaves keyed ``a<i>`` in sorted path order) and ``manifest.json``
@@ -16,6 +15,15 @@ wrote reads the same way: its bf16 leaves (ml_dtypes' bfloat16, which
 loads as ``|V2`` without ml_dtypes) are viewed as their uint16 bits, so
 it restores, verified, into torch tensors. A dtype name outside
 ``DTYPES`` is refused.
+
+Leaves are stored whole by path, whatever mesh they were on. A save of a
+tree with DTensor leaves gathers each leaf whole on every rank
+(``full_tensor``, a collective every rank makes in the same order), rank
+0 writes, and every rank waits at a barrier for the write (after it, for
+``save_async``, in ``wait``); the checksums are the whole arrays'.
+``restore(..., shardings=)`` places each leaf onto its ``NamedSharding``
+(``common/sharding.py``), which may be another mesh than the one it was
+saved from (an elastic resize).
 """
 from __future__ import annotations
 
@@ -29,7 +37,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch.common.sharding import is_distributed
 from repro_torch.common.tree import flatten_paths, unflatten_paths
 
 _MANIFEST = "manifest.json"
@@ -52,7 +63,10 @@ def _checksum(a: np.ndarray, dtype_name: str) -> str:
 
 
 def _to_host(leaf) -> tuple[np.ndarray, str]:
-    """A leaf as (numpy array, dtype name); bf16 as its uint16 bits."""
+    """A leaf as (numpy array, dtype name); bf16 as its uint16 bits; a
+    DTensor gathered whole first."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -85,6 +99,7 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
+        self._barrier = False    # a distributed save_async to wait for
 
     # -- paths ------------------------------------------------------------
     def _step_dir(self, step: int) -> str:
@@ -104,19 +119,30 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
     @staticmethod
-    def _snapshot(tree: Any) -> dict:
-        """Path -> (numpy array, dtype name), copied to the host now."""
-        return {path: _to_host(leaf)
-                for path, leaf in flatten_paths(tree).items()}
+    def _snapshot(tree: Any) -> tuple[dict, bool]:
+        """(path -> (numpy array, dtype name), copied to the host now;
+        whether the tree is distributed, and rank 0 alone writes it)."""
+        flat = flatten_paths(tree)
+        return ({path: _to_host(leaf) for path, leaf in flat.items()},
+                is_distributed(list(flat.values())))
 
     def save(self, step: int, tree: Any, extra: dict | None = None) -> str:
-        return self._write(step, self._snapshot(tree), extra or {})
+        host, distributed = self._snapshot(tree)
+        if not distributed or dist.get_rank() == 0:
+            self._write(step, host, extra or {})
+        if distributed:
+            dist.barrier()
+        return self._step_dir(step)
 
     def save_async(self, step: int, tree: Any, extra: dict | None = None):
         """Snapshot to the host now, write on a background thread; a write
-        that fails raises from the next ``wait``."""
-        host = self._snapshot(tree)
+        that fails raises from the next ``wait``, which is also where the
+        ranks of a distributed save meet."""
+        host, distributed = self._snapshot(tree)
         self.wait()
+        self._barrier = distributed
+        if distributed and dist.get_rank() != 0:
+            return
 
         def write():
             try:
@@ -131,6 +157,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("checkpoint: background save failed") from err
@@ -167,10 +196,13 @@ class CheckpointManager:
 
     # -- restore ------------------------------------------------------------
     def restore(self, step: int | None = None, *, verify: bool = True,
-                device="cpu") -> tuple[int, Any, dict]:
+                device="cpu", shardings: Any = None
+                ) -> tuple[int, Any, dict]:
         """Returns (step, tree of tensors on ``device``, extra); the newest
         step by default. ``verify`` checks each leaf's checksum and raises
-        IOError on a mismatch."""
+        IOError on a mismatch. ``shardings``: a tree of the same paths
+        whose ``NamedSharding`` leaves (None for a plain tensor) place the
+        leaves onto a mesh as DTensors."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -192,4 +224,9 @@ class CheckpointManager:
                     raise IOError(f"checksum mismatch at {path} in step "
                                   f"{step}")
                 flat[path] = _from_host(arr, name, device)
+        if shardings is not None:
+            flat_s = flatten_paths(shardings)
+            flat = {p: v if flat_s.get(p) is None else distribute_tensor(
+                v, flat_s[p].mesh, flat_s[p].placements)
+                for p, v in flat.items()}
         return step, unflatten_paths(flat), manifest.get("extra", {})

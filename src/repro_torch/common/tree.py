@@ -5,7 +5,10 @@
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
+
+import torch
 
 
 def tree_leaves(tree: Any) -> list:
@@ -60,3 +63,66 @@ def unflatten_paths(flat: dict[str, Any], sep: str = "/") -> Any:
         return node
 
     return listify(root)
+
+
+def map_with_path(fn: Callable[[str, Any], Any], tree: Any,
+                  prefix: str = "", sep: str = "/") -> Any:
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{prefix}{k}{sep}", sep)
+                for k, v in tree.items()}
+    return fn(prefix[: -len(sep)], tree)
+
+
+def get_path(tree: Any, path: str, sep: str = "/") -> Any:
+    node = tree
+    for p in path.split(sep):
+        node = node[p]
+    return node
+
+
+def set_path(tree: dict, path: str, value: Any, sep: str = "/") -> dict:
+    """Functional set: returns a new tree with ``path`` replaced."""
+    parts = path.split(sep)
+    new = dict(tree)
+    node = new
+    for p in parts[:-1]:
+        node[p] = dict(node[p])
+        node = node[p]
+    node[parts[-1]] = value
+    return new
+
+
+def _arrays(tree: Any) -> list:
+    """The tensors of ``tree``, a dataclass leaf's (a PackedW4's) fields
+    included, as ``jax.tree.leaves`` finds a registered dataclass's."""
+    out = []
+    for leaf in tree_leaves(tree):
+        if dataclasses.is_dataclass(leaf):
+            out.extend(_arrays([getattr(leaf, f.name)
+                                for f in dataclasses.fields(leaf)]))
+        elif isinstance(leaf, torch.Tensor):
+            out.append(leaf)
+    return out
+
+
+def tree_bytes(tree: Any) -> int:
+    return sum(l.numel() * l.element_size() for l in _arrays(tree))
+
+
+def count_params(tree: Any) -> int:
+    return sum(l.numel() for l in _arrays(tree))
+
+
+def cast_tree(tree: Any, dtype) -> Any:
+    """Every floating tensor of ``tree`` cast to ``dtype`` (a PackedW4's
+    scale and zero-point too, its codes not)."""
+    def cast(l):
+        if dataclasses.is_dataclass(l):
+            return dataclasses.replace(l, **{
+                f.name: cast(getattr(l, f.name))
+                for f in dataclasses.fields(l)
+                if isinstance(getattr(l, f.name), torch.Tensor)})
+        if isinstance(l, torch.Tensor) and l.is_floating_point():
+            return l.to(dtype)
+        return l
+    return tree_map(cast, tree)

@@ -66,7 +66,8 @@ def decode_step_profile(cfg, batch: int, slots: int, pos: int,
     time in ms, the idle shares, the kernel launches of the profiled step,
     ms and launches by kernel name, and the profile itself (``prof``)."""
     p = quantize_lm_for_serving(lm_init(
-        torch.Generator(device=device).manual_seed(0), cfg, device))
+        torch.Generator(device=device).manual_seed(0), cfg, device),
+        searched=False)
     ctx = QuantContext("serve", act_qps={"*": QuantizerParams(
         KIND_FP_SIGNED, 2, 1, 4, torch.tensor(6.0, device=device))})
     step = make_decode_fn(cfg, ctx=ctx)

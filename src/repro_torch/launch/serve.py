@@ -17,6 +17,11 @@ count, the card's peak memory, the dispatch routes (``ops.ROUTES``) and
 the kernel launches per decode step. ``main(argv, cfg=...)`` serves a
 given config in place of the arch's (the seam ``chip_smoke.py`` cuts a
 model's depth through).
+
+As the reference's, the run is under the host mesh over the world
+(``launch/mesh.py``: under ``torchrun`` its ranks, else one), with the
+parameters left as they are: every rank serves the whole batch.
+``serve(args, device, cfg)`` is the run without the mesh.
 """
 from __future__ import annotations
 
@@ -24,11 +29,13 @@ import argparse
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.common.clock import wall_clock
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.kernels import kv4, msfp_quant, ops, w4_matmul
+from repro_torch.launch.mesh import init_world, make_host_mesh, mesh_scope
 from repro_torch.launch.steps import make_decode_fn, quantize_lm_for_serving
 from repro_torch.models.lm import init_caches, lm_init
 from repro_torch.quant.calibrate import QuantContext
@@ -80,6 +87,16 @@ def main(argv=None, cfg=None) -> dict:
     ``kv_dtype`` set from ``--kv``)."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    made = init_world(device)
+    try:
+        with mesh_scope(make_host_mesh()):
+            return serve(args, device, cfg)
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def serve(args, device, cfg=None) -> dict:
     cfg = dataclasses.replace(
         cfg or get_config(args.arch, smoke=args.smoke), kv_dtype=args.kv)
     s_max = args.prompt_len + args.gen_len

@@ -15,7 +15,9 @@ one ``ServingGateway``. Runs on the card unless ``--device cpu`` is given:
 Clocks: ``--clock virtual`` replays deterministically (two runs of the
 same scenario on one device print the same outcome digest); ``--clock
 sim`` scores SLOs under simulated service time shared across every
-engine; ``--clock wall`` is real timing on a shared origin.
+engine; ``--clock wall`` is real timing on a shared origin, set once
+every engine is built (the reference sets it before the builds, so their
+seconds count as every request's queueing).
 
 Identity check: with a single diffusion model the gateway adds zero
 behavior — ``--models tiny-ddim --scenario golden --clock virtual``
@@ -118,8 +120,8 @@ def build_gateway(model_names, args, obs=NULL_OBS, registry=None):
         gw = ServingGateway(now_fn=sim.now, max_idle_sleep=0.0)
         eng_kw = {"now_fn": sim.now, "max_idle_sleep": 0.0}
     else:
-        t0 = wall_clock()
-        now_fn = lambda: wall_clock() - t0   # noqa: E731 — shared origin
+        origin = [wall_clock()]
+        now_fn = lambda: wall_clock() - origin[0]   # noqa: E731 — shared
         gw = ServingGateway(now_fn=now_fn)
         eng_kw = {"now_fn": now_fn}
     for entry in entries:
@@ -128,6 +130,11 @@ def build_gateway(model_names, args, obs=NULL_OBS, registry=None):
         if sim is not None:
             sim.attach(engine)
         gw.add_model(entry, engine)
+    if args.clock == "wall":
+        # arrivals count from when the gateway can serve, as a single
+        # engine's clock starts after its build: the engines' builds are
+        # not queueing time (the reference starts the clock before them)
+        origin[0] = wall_clock()
     return gw, sim
 
 

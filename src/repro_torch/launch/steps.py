@@ -1,7 +1,14 @@
 """The LM steps; port of ``repro.launch.steps``: the train step (with
 gradient accumulation), the prefill and decode functions, and the W4
 packing of an LM's weights. The abstract (dry-run) trees and input specs
-belong to the distribution layer (ROADMAP Queue A item 13)."""
+are ROADMAP Queue A item 13d.
+
+The train step takes plain tensors or DTensors placed by
+``launch/sharding.py:param_shardings`` (inside ``launch/mesh.py:
+mesh_scope``); DTensor's propagation computes the sharded step, and two
+sites are explicit: each gradient is redistributed to its parameter's
+placements (``reduce_grad``: the data-parallel reduction of a partial
+sum), and the loss and the metrics are gathered whole (``to_full``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,8 +16,10 @@ import math
 import re
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.common.device import no_tf32
+from repro_torch.common.sharding import to_full
 from repro_torch.common.tree import (flatten_paths, tree_leaves, tree_map,
                                      unflatten_paths)
 from repro_torch.core.qmodule import (PackedW4, encode_codes,
@@ -54,16 +63,26 @@ def dyadic_weights(params, shift: int = 0):
     return unflatten_paths(flat)
 
 
+def reduce_grad(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient on its parameter's placements: a partial sum over
+    the data-parallel ranks is reduced (all-reduce, or reduce-scatter
+    onto a shard); a plain gradient as it is."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def value_and_grad(params, cfg: LMConfig, batch: dict):
     """(loss, grads): ``loss_fn`` on the batch and its gradient with
     respect to every leaf of ``params`` (the grads in the leaves' dtypes,
-    as ``jax.value_and_grad`` gives them)."""
+    as ``jax.value_and_grad`` gives them, and on their placements)."""
     with torch.enable_grad():
         ps = tree_map(lambda t: t.detach().requires_grad_(), params)
         loss = loss_fn(ps, cfg, batch["tokens"], batch.get("extra"))
         grads = torch.autograd.grad(loss, tree_leaves(ps))
     it = iter(grads)
-    return loss.detach(), tree_map(lambda _: next(it), ps)
+    return (to_full(loss.detach()),
+            tree_map(lambda p: reduce_grad(next(it), p), ps))
 
 
 def make_train_step(cfg: LMConfig, acfg: AdamConfig, *, grad_accum: int = 1):
@@ -82,8 +101,8 @@ def make_train_step(cfg: LMConfig, acfg: AdamConfig, *, grad_accum: int = 1):
                                       *v.shape[1:]) for k, v in batch.items()}
                 loss = torch.zeros((), dtype=torch.float32,
                                    device=batch["tokens"].device)
-                grads = tree_map(lambda t: torch.zeros(
-                    t.shape, dtype=torch.float32, device=t.device), params)
+                grads = tree_map(lambda t: torch.zeros_like(
+                    t, dtype=torch.float32), params)
                 for i in range(grad_accum):
                     li, gi = value_and_grad(
                         params, cfg, {k: v[i] for k, v in micro.items()})
@@ -93,7 +112,8 @@ def make_train_step(cfg: LMConfig, acfg: AdamConfig, *, grad_accum: int = 1):
                 loss = loss / grad_accum
                 grads = tree_map(lambda g: g / grad_accum, grads)
             params, opt, metrics = adam_update(grads, opt, params, acfg)
-        return params, opt, {"loss": loss, **metrics}
+        return params, opt, {"loss": loss, **{k: to_full(v) for k, v
+                                              in metrics.items()}}
 
     return train_step
 
@@ -144,13 +164,14 @@ def _pack_stacked(leaf: torch.Tensor, qp: QuantizerParams) -> PackedW4:
                     tuple(leaf.shape))
 
 
-def quantize_lm_for_serving(params, bits: int = 4, *, searched: bool = False,
+def quantize_lm_for_serving(params, bits: int = 4, *, searched: bool = True,
                             per_channel: bool = False):
     """Pack the quantizable LM weights to W4.
 
-    A 2D weight gets one scale: signed E2M1 at its absmax, or with
-    ``searched`` the paper's MSE search (``quant/search.py:
-    search_weight_params``, format and maxval); ``per_channel`` keeps that
+    A 2D weight gets one scale: with ``searched`` (the default, as the
+    reference's) the paper's MSE search (``quant/search.py:
+    search_weight_params``, format and maxval), else signed E2M1 at its
+    absmax; ``per_channel`` keeps that
     format and refits the grid maximum per output column. Stacked
     (G, ..., N) weights take signed E2M1 absmax scales whatever
     ``searched`` says, as the reference does: one per slice, (G, 1, ...,

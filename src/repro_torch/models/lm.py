@@ -28,6 +28,12 @@ Python loop either way). ``moe_impl == "ep"`` runs ``moe_apply_ep``,
 which without a mesh is ``moe_apply``, as in the reference.
 ``loss_fn`` adds no MoE aux loss, as the reference's code (its module
 docstring says it does; ROADMAP Queue C).
+
+Under a mesh (``launch/mesh.py:mesh_scope``) the parameters and the batch
+may be DTensors, and the reference's six activation hints
+(``common/sharding.py:shard_hint``) redistribute the embeddings, each
+block's output and the residual to (DP, None, None) and the logits to
+(DP, None, MODEL); meshless they pass through.
 """
 from __future__ import annotations
 
@@ -38,6 +44,8 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.common.sharding import (DP, MODEL, like,
+                                         recompute_contexts, shard_hint)
 from repro_torch.core.qmodule import PackedW4
 from repro_torch.kernels import ops
 from repro_torch.nn.attention import (AttnConfig, attn_apply, attn_decode,
@@ -76,7 +84,7 @@ class LMConfig:
     # depth pattern, period P entries of (kind, window|None, rope_theta)
     layer_pattern: tuple = ((ATTN, None, 10_000.0),)
     # --- moe ---
-    moe_impl: str = "global"         # global | ep (meshless until item 13)
+    moe_impl: str = "global"         # global | ep (expert parallel)
     n_experts: int = 0
     top_k: int = 0
     moe_d_ff: int = 0
@@ -301,8 +309,8 @@ def _moe_block(bp: dict, x, cfg: LMConfig, *, ctx, site: str):
 
 def _attn_block(bp: dict, h, cos, sin, acfg: AttnConfig, cfg: LMConfig, *,
                 ctx, site: str):
-    """Pre-norm attention, then the block's MoE or MLP, each a residual
-    (``shard_hint`` is a no-op on one device)."""
+    """Pre-norm attention, then the block's MoE or MLP, each a
+    residual."""
     x = rmsnorm_apply(bp["ln1"], h)
     h = h + attn_apply(bp["attn"], x, cos, sin, acfg, q_chunk=cfg.q_chunk,
                        ctx=ctx, site=f"{site}/attn")
@@ -313,13 +321,13 @@ def _attn_block(bp: dict, h, cos, sin, acfg: AttnConfig, cfg: LMConfig, *,
         x = rmsnorm_apply(bp["ln2"], h)
         h = h + mlp_apply(bp["mlp"], x, cfg.mlp_kind, ctx=ctx,
                           site=f"{site}/mlp")
-    return h
+    return shard_hint(h, DP, None, None)
 
 
 def _ssm_block(bp: dict, h, cfg: LMConfig, *, ctx, site: str):
     x = rmsnorm_apply(bp["ln1"], h)
-    return h + ssm_apply(bp["ssm"], x, cfg.ssm_cfg(), ctx=ctx,
-                         site=f"{site}/ssm")
+    return shard_hint(h + ssm_apply(bp["ssm"], x, cfg.ssm_cfg(), ctx=ctx,
+                                    site=f"{site}/ssm"), DP, None, None)
 
 
 def _shared_attn(sp: dict, h, cos, sin, cfg: LMConfig, *, ctx):
@@ -362,7 +370,7 @@ def _embed_tokens(p: dict, cfg: LMConfig, tokens: torch.Tensor, extra):
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
                              device=h.device).to(cfg.dtype)
     if cfg.family == "vlm" and extra is not None:
-        img = dense_apply(p["vision_proj"], extra.to(cfg.dtype))
+        img = dense_apply(p["vision_proj"], like(extra, h).to(cfg.dtype))
         if img.shape[1] > h.shape[1]:
             raise ValueError(f"{img.shape[1]} image tokens do not fit a "
                              f"sequence of {h.shape[1]}")
@@ -371,8 +379,8 @@ def _embed_tokens(p: dict, cfg: LMConfig, tokens: torch.Tensor, extra):
     if cfg.pos == "sinusoidal":
         pos = timestep_embedding(torch.arange(h.shape[1], device=h.device),
                                  cfg.d_model)
-        h = h + pos[None].to(cfg.dtype)
-    return h
+        h = h + like(pos[None].to(cfg.dtype), h)
+    return shard_hint(h, DP, None, None)
 
 
 def _head(p: dict, cfg: LMConfig, h, ctx):
@@ -384,7 +392,7 @@ def _head(p: dict, cfg: LMConfig, h, ctx):
         logits = dense_apply(p["lm_head"], h, ctx=ctx, site="lm_head")
     if cfg.logits_softcap:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
-    return logits
+    return shard_hint(logits, DP, None, MODEL)
 
 
 def forward(p: dict, cfg: LMConfig, tokens: torch.Tensor,
@@ -393,7 +401,8 @@ def forward(p: dict, cfg: LMConfig, tokens: torch.Tensor,
     -> (B, S, vocab)."""
     s = tokens.shape[1]
     h = _embed_tokens(p, cfg, tokens, extra)
-    tables = _rope_tables(cfg, s, tokens.device)
+    tables = {theta: tuple(t if t is None else like(t, h) for t in cs)
+              for theta, cs in _rope_tables(cfg, s, tokens.device).items()}
 
     for i in range(cfg.first_k_dense):
         _, window, theta = cfg.layer_pattern[0]
@@ -420,7 +429,10 @@ def forward(p: dict, cfg: LMConfig, tokens: torch.Tensor,
     for g in range(cfg.n_groups):
         group_params = [_slice(stack, g) for stack in p["blocks"]]
         if remat:
-            h = checkpoint(group_body, h, group_params, use_reentrant=False)
+            # the recomputation runs on the backward's thread: it takes
+            # the forward's ambient mesh with it
+            h = checkpoint(group_body, h, group_params, use_reentrant=False,
+                           context_fn=recompute_contexts)
         else:
             h = group_body(h, group_params)
     return _head(p, cfg, h, ctx)
@@ -430,9 +442,12 @@ def loss_fn(p: dict, cfg: LMConfig, tokens: torch.Tensor,
             extra: torch.Tensor | None = None, ctx=None) -> torch.Tensor:
     """Next-token cross-entropy (mean over tokens), as logsumexp minus the
     label's logit in f32. The label is picked with a gather: the value of
-    the reference's one-hot sum, without a (B, S, vocab) one-hot."""
+    the reference's one-hot sum, without a (B, S, vocab) one-hot. Under a
+    mesh the logits' vocab dim is gathered whole first: DTensor's gather
+    along a sharded dim leaves a masked partial sum that its reduction
+    mishandles (an IndexError in torch 2.13)."""
     logits = forward(p, cfg, tokens, extra, ctx=ctx)
-    lg = logits[:, :-1].to(torch.float32)
+    lg = shard_hint(logits[:, :-1].to(torch.float32), DP, None, None)
     lse = torch.logsumexp(lg, dim=-1)
     lab = lg.gather(-1, tokens[:, 1:, None].long())[..., 0]
     return (lse - lab).mean()
@@ -525,6 +540,7 @@ def decode_step(p: dict, cfg: LMConfig, caches: dict, token: torch.Tensor,
     if cfg.pos == "sinusoidal":
         t = torch.tensor([float(pos)], device=dev)
         h = h + timestep_embedding(t, cfg.d_model)[None].to(cfg.dtype)
+    h = shard_hint(h, DP, None, None)
 
     rots: dict[float, tuple] = {}
 

@@ -33,6 +33,7 @@ import dataclasses
 import torch
 
 from repro_torch.common.device import no_tf32
+from repro_torch.common.sharding import like
 from repro_torch.kernels import kv4, ops
 from repro_torch.nn.embeddings import apply_rope
 from repro_torch.nn.layers import dense_apply, dense_init
@@ -116,7 +117,7 @@ def attn_apply(p: dict, x: torch.Tensor, cos, sin, cfg: AttnConfig, *,
         if cfg.softcap:
             logits = cfg.softcap * torch.tanh(logits / cfg.softcap)
         m = _mask(c0 + torch.arange(qc, device=x.device), k_pos, cfg.window)
-        logits = torch.where(m, logits, neg)
+        logits = torch.where(like(m, logits), logits, neg)
         w = torch.softmax(logits, dim=-1).to(v.dtype)
         with no_tf32(), kv4.f32_reductions():
             o = torch.einsum("bkgqs,bskh->bqkgh", w, v)

@@ -1,5 +1,6 @@
 """Functional layers over plain param dicts; port of ``repro.nn.layers``
-(dense, NHWC/HWIO conv2d, group/rms/layer norm, activations).
+(dense, NHWC/HWIO conv2d, group/rms/layer norm, the embedding table,
+activations).
 
 Quantization hooks as in the reference: ``ctx`` (a ``QuantContext``)
 supplies the serve-mode act quantizer per site, and a weight is a dense
@@ -127,6 +128,22 @@ def layernorm_apply(p: dict, x: torch.Tensor, *, eps: float = 1e-5
     n = (xf - mu) * torch.rsqrt(var + eps)
     return (n * p["g"].to(torch.float32)
             + p["b"].to(torch.float32)).to(x.dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int, device="cpu",
+               dtype=torch.float32) -> dict:
+    w = torch.randn((vocab, dim), generator=gen, device=gen.device) * 0.02
+    return {"table": w.to(device=device, dtype=dtype)}
+
+
+def embed_apply(p: dict, ids: torch.Tensor) -> torch.Tensor:
+    return p["table"][ids]
+
+
+def embed_attend(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Tied-readout logits: x @ table.T in x's dtype (the LM's tied
+    head's product, ``ops.tied_logits``)."""
+    return ops.tied_logits(x, p["table"])
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Token-choice top-k MoE with fixed expert capacity (sort-based
 dispatch); port of ``repro.nn.moe``: ``moe_apply``, the load-balance
-loss, and ``moe_apply_ep`` as the reference runs it without a device mesh
-(its shard_map path is ROADMAP Queue A item 13).
+loss, and ``moe_apply_ep``, the expert-parallel form over the ambient
+mesh's ``model`` axis (``local_map`` in place of the reference's
+``shard_map``, one ``all_to_all_single`` each way).
 
 Dispatch sorts the (T*k) token-expert assignments by expert id (stably,
 as ``jnp.argsort``), ranks each entry within its expert's run with a
@@ -17,13 +18,27 @@ act (a serve-mode ``ctx.act`` is the identity), so neither does the port,
 under ``--act-quant fp4`` too. The shared expert is a ``glu_mlp_apply``
 site and runs W4A4 K2 under a serve-mode context. The router is a plain
 f32 product (``dense_apply`` without a context).
+
+The combine sums each token's k contributions in dispatch order with no
+atomic add, so a step gives the same bits on every run on the card
+(``_combine_local``). Under a mesh, ``moe_apply`` on DTensors runs on
+every rank over the whole token set and whole expert stacks
+(``_on_replicas``): correct, and as costly as the reference's global
+dispatch under GSPMD; ``moe_apply_ep`` is the form that shards it.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.common.sharding import (P, ambient_mesh, axis_sizes,
+                                         grad_placements, like, placements)
+from repro_torch.common.tree import flatten_paths, tree_map, unflatten_paths
 from repro_torch.core.qmodule import PackedW4
 from repro_torch.kernels import ops
 from repro_torch.nn.layers import ACTIVATIONS, dense_apply, dense_init
@@ -126,25 +141,17 @@ def _experts(p: dict, hidden: torch.Tensor, act, down_in) -> torch.Tensor:
     return torch.stack(outs)
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, *, ctx=None,
-              site: str | None = None) -> torch.Tensor:
-    """x: (..., d) -> (..., d). Flattens leading dims into tokens."""
-    lead = x.shape[:-1]
-    d = x.shape[-1]
-    xt = x.reshape(-1, d)
-    t = xt.shape[0]
+def _dispatch_local(xt: torch.Tensor, probs: torch.Tensor, cfg: MoEConfig,
+                    c: int):
+    """Sort-based dispatch of ``xt``'s tokens into an (E, c, d) buffer:
+    (hidden, the metadata ``_combine_local`` gathers the outputs back
+    with)."""
+    t, d = xt.shape
     k, e = cfg.top_k, cfg.n_experts
-    c = capacity(t, cfg)
-    dev = x.device
-
-    # router in f32, kept unquantized like the paper's sensitive layers
-    logits = dense_apply(p["router"], xt.to(torch.float32))
-    probs = torch.softmax(logits, dim=-1)
+    dev = xt.device
     gate_w, gate_ids = top_k(probs, k)                             # (T,k)
     gate_w = (gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
-              ).to(x.dtype)
-
-    # dispatch: sort the (T*k) assignments by expert
+              ).to(xt.dtype)
     flat_e = gate_ids.reshape(-1)
     flat_w = gate_w.reshape(-1)
     flat_tok = torch.arange(t, device=dev).repeat_interleave(k)
@@ -153,12 +160,67 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, *, ctx=None,
     pos = _positions_in_segment(se)
     keep = pos < c
     dst = torch.where(keep, se * c + pos, e * c)                   # sentinel
+    buf = torch.zeros((e * c + 1, d), dtype=xt.dtype, device=dev)
+    buf[dst] = xt[st]
+    return buf[:-1].reshape(e, c, d), (keep, dst, st, sw)
 
+
+def _combine_local(out_e: torch.Tensor, meta, t: int, d: int, dtype):
+    """Each token's k weighted expert outputs summed back into (T, d).
+    The sum runs over a token's entries in dispatch order (ascending
+    expert id) in f32 from 0, rounded once to ``dtype``: the bits of the
+    CPU's ``index_add_``, with no atomic add (CUDA's ``index_add_`` adds
+    in an order that varies between runs)."""
+    keep, dst, st, sw = meta
+    e_c = out_e.shape[0] * out_e.shape[1]
+    flat_out = out_e.reshape(e_c, -1)
+    gathered = torch.where(keep[:, None], flat_out[dst.clamp(0, e_c - 1)],
+                           torch.zeros((), dtype=flat_out.dtype,
+                                       device=flat_out.device))
+    contrib = (gathered * sw[:, None]).to(dtype)
+    by_token = contrib[torch.argsort(st, stable=True)].reshape(t, -1, d)
+    yt = torch.zeros((t, d), dtype=torch.float32, device=out_e.device)
+    for j in range(by_token.shape[1]):
+        yt = yt + by_token[:, j].to(torch.float32)
+    return yt.to(dtype)
+
+
+def _on_replicas(fn, p: dict, x, *args, **kw):
+    """``fn(p, x, ...)`` with DTensor inputs gathered whole onto every
+    rank and its output replicated: the global dispatch's argsort and
+    scatter over a sharded token set have no DTensor sharding rule, and
+    under GSPMD they meet the same gathers (the reference's baseline,
+    which ``moe_apply_ep`` replaces)."""
+    mesh = x.device_mesh
+    paths, leaves = zip(*flatten_paths(p).items())
+    # lists: local_map reads a tuple of out_placements as one an output
+    rep = [Replicate()] * mesh.ndim
+
+    def local(x_l, *leaves_l):
+        return fn(unflatten_paths(dict(zip(paths, leaves_l))), x_l, *args,
+                  **kw)
+
+    return local_map(local, out_placements=rep, in_placements=tuple(
+        rep if isinstance(a, DTensor) else None for a in (x, *leaves)),
+        device_mesh=mesh, redistribute_inputs=True)(x, *leaves)
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, *, ctx=None,
+              site: str | None = None) -> torch.Tensor:
+    """x: (..., d) -> (..., d). Flattens leading dims into tokens."""
+    if isinstance(x, DTensor):
+        return _on_replicas(moe_apply, p, x, cfg, ctx=ctx, site=site)
+    lead = x.shape[:-1]
+    d = x.shape[-1]
+    xt = x.reshape(-1, d)
+    t = xt.shape[0]
+
+    # router in f32, kept unquantized like the paper's sensitive layers
+    logits = dense_apply(p["router"], xt.to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
     xq = ctx.act(f"{site}/experts", xt) if (ctx is not None and site) \
         else xt
-    buf = torch.zeros((e * c + 1, d), dtype=xq.dtype, device=dev)
-    buf[dst] = xq[st]
-    hidden = buf[:-1].reshape(e, c, d)
+    hidden, meta = _dispatch_local(xq, probs, cfg, capacity(t, cfg))
 
     def down_in(h):
         if ctx is not None and site:
@@ -166,14 +228,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, *, ctx=None,
         return h
 
     out_e = _experts(p, hidden, ACTIVATIONS[cfg.act], down_in)
-
-    # combine: gather back and weight
-    flat_out = out_e.reshape(e * c, d)
-    gathered = torch.where(keep[:, None], flat_out[dst.clamp(0, e * c - 1)],
-                           torch.zeros((), dtype=flat_out.dtype, device=dev))
-    contrib = gathered * sw[:, None]
-    yt = torch.zeros((t, d), dtype=x.dtype, device=dev).index_add_(
-        0, st, contrib.to(x.dtype))
+    yt = _combine_local(out_e, meta, t, d, x.dtype)
 
     if "shared" in p:
         yt = yt + glu_mlp_apply(p["shared"], xt, act=cfg.act, ctx=ctx,
@@ -181,13 +236,106 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, *, ctx=None,
     return yt.reshape(*lead, d)
 
 
+class _AllToAll(torch.autograd.Function):
+    """``t`` split into the group's size of equal chunks along dim 0,
+    chunk j sent to rank j, the chunks received stacked in source-rank
+    order. With equal chunks the exchange is its own inverse, so the
+    backward is the same exchange of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = torch.empty_like(t, memory_format=torch.contiguous_format)
+        dist.all_to_all_single(out, t.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllToAll.apply(grad, ctx.group), None
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    return _AllToAll.apply(t, group)
+
+
 def moe_apply_ep(p: dict, x: torch.Tensor, cfg: MoEConfig, *,
                  model_axis: str = "model", ctx=None,
                  site: str | None = None) -> torch.Tensor:
-    """The expert-parallel MoE without a mesh: the reference falls back to
-    ``moe_apply`` when no mesh has a ``model_axis`` (``repro/nn/moe.py:
-    174-175``), and the port has no mesh yet (ROADMAP Queue A item 13)."""
-    return moe_apply(p, x, cfg, ctx=ctx, site=site)
+    """Expert-parallel MoE (the fix for the global-sort dispatch, whose
+    sorts and scatters span every token). Each token shard sorts and
+    buckets its LOCAL tokens, then one all-to-all over the ``model`` group
+    reshards (E, c_l, d) -> (E/mp, mp*c_l, d); each rank runs its own
+    experts on their weights; the inverse all-to-all and the local gather
+    combine. Collective volume is 2x the dispatched activations.
+
+    Tokens shard over every mesh axis for the dispatch, the model axis
+    included. Falls back to ``moe_apply`` where the reference does: no
+    ambient mesh or none with ``model_axis``, experts that the axis does
+    not divide, tokens that the shards do not divide. Plain-tensor inputs
+    are taken as replicated (a plain ``x`` gets its output gathered
+    whole); a DTensor's output stays a DTensor sharded over the
+    tokens."""
+    mesh = ambient_mesh()
+    if mesh is None or model_axis not in mesh.mesh_dim_names:
+        return moe_apply(p, x, cfg, ctx=ctx, site=site)
+    sizes = axis_sizes(mesh)
+    mp = sizes[model_axis]
+    if cfg.n_experts % mp != 0:
+        return moe_apply(p, x, cfg, ctx=ctx, site=site)
+    dp_axes = tuple(a for a in mesh.mesh_dim_names if a != model_axis)
+
+    lead = x.shape[:-1]
+    d = x.shape[-1]
+    xt = x.reshape(-1, d)
+    t = xt.shape[0]
+    tok_axes = (*dp_axes, model_axis)
+    n_shards = math.prod(sizes[a] for a in tok_axes)
+    if t % n_shards != 0:
+        return moe_apply(p, x, cfg, ctx=ctx, site=site)
+    rep = [Replicate()] * mesh.ndim
+    plain = not isinstance(xt, DTensor)
+    if plain:
+        xt = DTensor.from_local(xt, mesh, rep, run_check=False)
+    p = tree_map(lambda a: like(a, xt), p)
+    c_l = capacity(t // n_shards, cfg)
+    group = mesh.get_group(model_axis)
+    e_l = cfg.n_experts // mp
+    act = ACTIVATIONS[cfg.act]
+
+    def local_fn(xt_l, router_w, w_gate_l, w_up_l, w_down_l):
+        logits = ops.dense_matmul(xt_l.to(torch.float32), router_w)
+        probs = torch.softmax(logits, dim=-1)
+        hidden, meta = _dispatch_local(xt_l, probs, cfg, c_l)  # (E, c_l, d)
+        # (E, c_l, d) -> (E/mp, mp*c_l, d)
+        hidden = _all_to_all(hidden, group).reshape(
+            mp, e_l, c_l, d).transpose(0, 1).reshape(e_l, mp * c_l, d)
+        out_e = _experts({"w_gate": w_gate_l, "w_up": w_up_l,
+                          "w_down": w_down_l}, hidden, act, lambda h: h)
+        out_e = _all_to_all(out_e.reshape(e_l, mp, c_l, d).transpose(0, 1),
+                            group).reshape(cfg.n_experts, c_l, d)
+        return _combine_local(out_e, meta, xt_l.shape[0], d, xt_l.dtype)
+
+    tok = list(placements(P(tok_axes, None), mesh))
+    experts = list(placements(P(model_axis, None, None), mesh))
+    # a whole input's gradient is a partial sum over the ranks whose tokens
+    # reached it: the router's over every token shard, an expert's over
+    # the data ranks (the all-to-all brings it its model group's tokens)
+    router_grad = grad_placements(tok)
+    experts_grad = [g if isinstance(e, Replicate) else e
+                    for g, e in zip(router_grad, experts)]
+    yt = local_map(local_fn, out_placements=tok,
+                   in_placements=(tok, rep, experts, experts, experts),
+                   in_grad_placements=(tok, router_grad, experts_grad,
+                                       experts_grad, experts_grad),
+                   device_mesh=mesh, redistribute_inputs=True)(
+        xt, p["router"]["w"].to(torch.float32), p["w_gate"], p["w_up"],
+        p["w_down"])
+
+    if "shared" in p:
+        yt = yt + glu_mlp_apply(p["shared"], xt, act=cfg.act, ctx=ctx,
+                                site=f"{site}/shared" if site else None)
+    y = yt.reshape(*lead, d)
+    return y.full_tensor() if plain else y
 
 
 def aux_load_balance_loss(logits: torch.Tensor, gate_ids: torch.Tensor,

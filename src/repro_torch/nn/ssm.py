@@ -20,11 +20,14 @@ itself is plain torch, as the reference leaves it to XLA.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.common.device import no_tf32
+from repro_torch.common.sharding import over_batch
 from repro_torch.nn.layers import (dense_apply, dense_init, rmsnorm_apply,
                                    rmsnorm_init, silu)
 
@@ -172,11 +175,29 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg: SSMConfig, *, ctx=None,
               site: str | None = None) -> torch.Tensor:
     """Full-sequence Mamba2 block. x: (B, S, D) -> (B, S, D). The conv
     runs in the model's dtype (decode's conv buffer is bf16; here there is
-    none)."""
-    bsz, s, _ = x.shape
+    none). On DTensors the mixer between the two projections runs on each
+    rank's batch shard (``over_batch``): its views have no DTensor rule in
+    torch 2.11."""
     zxbcdt = dense_apply(p["in_proj"], x, ctx=ctx, site=f"{site}/in_proj")
+    whole = tuple(p[k] for k in MIXER_PARAMS)
+    if isinstance(zxbcdt, DTensor):
+        y = over_batch(functools.partial(_mixer, cfg=cfg), zxbcdt, whole)
+    else:
+        y = _mixer(zxbcdt, *whole, cfg=cfg)
+    y = rmsnorm_apply(p["norm"], y)
+    return dense_apply(p["out_proj"], y, ctx=ctx, site=f"{site}/out_proj")
+
+
+MIXER_PARAMS = ("conv_w", "conv_b", "dt_bias", "A_log", "D")
+
+
+def _mixer(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, *,
+           cfg: SSMConfig) -> torch.Tensor:
+    """The causal conv, the SSD scan, the skip and the gate: (B, S,
+    d_in_proj) -> (B, S, d_inner)."""
+    bsz, s, _ = zxbcdt.shape
     z, xbc, dt = _split_proj(zxbcdt, cfg)
-    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    xbc = _causal_conv(xbc, conv_w, conv_b)
     di, g, n, h = cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads
     xs = xbc[..., :di].reshape(bsz, s, h, cfg.headdim)
     rep = h // g
@@ -184,14 +205,12 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg: SSMConfig, *, ctx=None,
         xbc[..., di:di + g * n].reshape(bsz, s, g, n), rep, dim=2)
     c_mat = torch.repeat_interleave(
         xbc[..., di + g * n:].reshape(bsz, s, g, n), rep, dim=2)
-    dt = softplus(dt.to(torch.float32) + p["dt_bias"])            # (B,S,H)
-    a = -torch.exp(p["A_log"].to(torch.float32))                  # (H,)
+    dt = softplus(dt.to(torch.float32) + dt_bias)                 # (B,S,H)
+    a = -torch.exp(a_log.to(torch.float32))                       # (H,)
     y, _ = ssd_scan(xs * dt[..., None].to(xs.dtype), dt * a, b_mat, c_mat,
                     cfg.chunk)
-    y = y + xs * p["D"][None, None, :, None].to(xs.dtype)
-    y = y.reshape(bsz, s, di) * silu(z)
-    y = rmsnorm_apply(p["norm"], y)
-    return dense_apply(p["out_proj"], y, ctx=ctx, site=f"{site}/out_proj")
+    y = y + xs * d_skip[None, None, :, None].to(xs.dtype)
+    return y.reshape(bsz, s, di) * silu(z)
 
 
 def ssm_decode(p: dict, x: torch.Tensor, cache: dict, cfg: SSMConfig, *,

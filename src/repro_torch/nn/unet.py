@@ -11,6 +11,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.common.tree import flatten_paths
+from repro_torch.core.talora import lora_target_dims_from_weights
 from repro_torch.nn.embeddings import timestep_embedding
 from repro_torch.nn.layers import (conv2d_apply, conv2d_init, dense_apply,
                                    dense_init, groupnorm_apply, groupnorm_init,
@@ -187,3 +189,14 @@ def unet_apply(p: dict, x: torch.Tensor, t: torch.Tensor, cfg: UNetConfig, *,
 def io_sites(p: dict) -> set[str]:
     """Input/output layers the paper keeps at 8-bit."""
     return {"conv_in", "conv_in/w", "conv_out", "conv_out/w"}
+
+
+def lora_target_sites(p: dict) -> dict[str, tuple[int, int]]:
+    """LoRA dims for every conv/dense weight (paper: all quantized layers).
+
+    Keys are '/'-joined weight paths (e.g. 'mid.attn/q/w'); convs use the
+    flattened (kh*kw*cin, cout) factorization (see talora.merge_into_tree).
+    """
+    flat = {k: v for k, v in flatten_paths(p).items()
+            if k.endswith("/w") and v.ndim >= 2}
+    return lora_target_dims_from_weights(flat)

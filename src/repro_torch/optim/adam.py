@@ -51,8 +51,9 @@ def adam_init(params: Any, cfg: AdamConfig) -> dict:
     leaves = tree_leaves(params)
     device = leaves[0].device if leaves else "cpu"
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+    def zeros(p):   # on p's placements where p is a DTensor
+        return torch.zeros_like(p, dtype=cfg.moment_dtype,
+                                memory_format=torch.contiguous_format)
 
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}

@@ -1,7 +1,8 @@
 """Fault-tolerant training loop; port of ``repro.train.trainer``.
 
   * auto-restore: on (re)start the trainer resumes from the newest intact
-    checkpoint, onto the device of the state it was given;
+    checkpoint, onto the device of the state it was given, and a DTensor
+    leaf onto that leaf's mesh and placements;
   * periodic and preemption checkpoints: a background save every
     ``ckpt_every`` steps; ``request_stop()`` (the preemption hook) ends the
     run at the next step boundary with a synchronous save, as the end of
@@ -28,7 +29,8 @@ import torch
 
 from repro_torch.checkpoint.ckpt import CheckpointManager
 from repro_torch.common.clock import wall_clock
-from repro_torch.common.tree import tree_leaves
+from repro_torch.common.sharding import is_distributed, sharding_of
+from repro_torch.common.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -80,7 +82,10 @@ class Trainer:
         latest = self.ckpt.latest_step()
         if latest is None:
             return 0, state
-        step, tree, _ = self.ckpt.restore(latest, device=_device_of(state))
+        shardings = (tree_map(sharding_of, state)
+                     if is_distributed(tree_leaves(state)) else None)
+        step, tree, _ = self.ckpt.restore(latest, device=_device_of(state),
+                                          shardings=shardings)
         return step, tree
 
     def run(self, state: Any, data: Callable[[int], Any]

@@ -87,7 +87,7 @@ def main(argv=None):
     toks = torch.randint(0, cfg.vocab, (b, steps),
                          generator=torch.Generator().manual_seed(1))
     packed = quantize_lm_for_serving(dyadic_weights(
-        lm_init(torch.Generator().manual_seed(0), cfg)))
+        lm_init(torch.Generator().manual_seed(0), cfg)), searched=False)
 
     def run():
         ctx = QuantContext("serve", act_qps={"*": QuantizerParams(

@@ -146,7 +146,7 @@ def decode_parity(jcfg, dt, kv, pc, act, dy, *, seed=2, b=2, steps=8):
     tp = tlm.lm_init(torch.Generator().manual_seed(seed), tcfg)
     if dy:
         tp = dyadic_weights(tp)
-    tp = quantize_lm_for_serving(tp, per_channel=pc)
+    tp = quantize_lm_for_serving(tp, per_channel=pc, searched=False)
     jp = j_tree(tp)
     jctx = tctx = None
     if act:

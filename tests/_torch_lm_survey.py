@@ -46,7 +46,7 @@ def run(name, dt, kv, act, dyadic, seed, steps=8, b=2):
         tp = T.dyadic_weights(tp)
         jp = jax.tree.map(lambda a: jnp.asarray(a.float().numpy()).astype(
             jcfg.dtype), tp)
-    tp = T.quantize_lm_for_serving(tp)
+    tp = T.quantize_lm_for_serving(tp, searched=False)
     jp = T.j_quantize(jp, searched=False)
     jctx = tctx = None
     if act:

@@ -252,7 +252,7 @@ def test_prefill_step_on_w4_packs_matches_reference(arch):
     tcfg = t_config(jcfg)
     tp = quantize_lm_for_serving(
         tlm.lm_init(torch.Generator().manual_seed(1), tcfg),
-        per_channel=(arch == "smollm-135m"))
+        per_channel=(arch == "smollm-135m"), searched=False)
     jp = j_tree(tp)
     (jtok, jex), (ttok, tex) = both(*rng_inputs(jcfg, 1))
     want = jax.jit(j_make_prefill_step(jcfg))(jp, {"tokens": jtok})
@@ -277,7 +277,7 @@ def test_serve_forward_matches_reference_kernels(arch, jax_interpret):
     tcfg = t_config(jcfg)
     tp = quantize_lm_for_serving(dyadic_weights(
         tlm.lm_init(torch.Generator().manual_seed(2), tcfg)),
-        per_channel=True)
+        per_channel=True, searched=False)
     jp = j_tree(tp)
     jctx = JCtx("serve", act_qps={"*": JQP(0, 2, 1, 4, jnp.float32(6.0))})
     tctx = QuantContext("serve", act_qps={"*": QuantizerParams(
@@ -318,7 +318,8 @@ def test_dyadic_weights_shift_is_an_exact_power_of_two():
         want = v * 2.0 ** -3 if k in quant else v
         assert torch.equal(shifted[k], want), k
     packs = {k: v for k, v in flatten_paths(quantize_lm_for_serving(
-        dyadic_weights(params, shift=3))).items() if isinstance(v, PackedW4)}
+        dyadic_weights(params, shift=3), searched=False)).items()
+        if isinstance(v, PackedW4)}
     assert set(packs) == set(quant)
     for k, pw in packs.items():
         e = torch.log2(pw.scale.float() / 0.75)     # maxval 0.75 * 2^-j

@@ -721,3 +721,26 @@ def test_gateway_launcher_is_deterministic_with_the_reference_report(
     assert {r for _, r in ops.ROUTES} <= {"plain", "plain:implicit",
                                           "torch"}
     assert ops.ROUTES[("w4_matmul", "plain")] > 0     # the LM, acts off
+
+
+def test_gateway_wall_clock_starts_after_the_builds(monkeypatch):
+    """``--clock wall``: the shared clock reads from when every engine is
+    built, so a model's build is not counted as its requests' queueing
+    (a 1.5 s deadline would otherwise lapse behind a slow build before
+    the first tick). Each build here is held up by 0.5 s."""
+    import time
+    real = serve_gateway.BUILDERS["diffusion"]
+
+    def slow(*a, **kw):
+        engine = real(*a, **kw)
+        time.sleep(0.5)
+        return engine
+
+    monkeypatch.setitem(serve_gateway.BUILDERS, "diffusion", slow)
+    args = serve_gateway.build_parser().parse_args([
+        "--models", "tiny-ddim", "--clock", "wall", "--device", "cpu",
+        "--image-size", "8", "--T", "50"])
+    args.gateway_max_batch = 2
+    gw, _ = serve_gateway.build_gateway(["tiny-ddim"], args)
+    assert 0.0 <= gw.engine("tiny-ddim").now() < 0.25
+    assert 0.0 <= gw._now() < 0.25

@@ -259,7 +259,7 @@ def test_lm_decode_on_card_matches_cpu(cuda, kv, act, dt):
     same argmax; bf16, relative Frobenius error <= 2e-2."""
     cfg = dataclasses.replace(smollm_smoke(), kv_dtype=kv, dtype=dt)
     params = quantize_lm_for_serving(dyadic_weights(lm_init(
-        torch.Generator().manual_seed(5), cfg)))
+        torch.Generator().manual_seed(5), cfg)), searched=False)
     toks = torch.randint(0, cfg.vocab, (3, 6),
                          generator=torch.Generator().manual_seed(6))
 
@@ -307,7 +307,7 @@ def test_family_decode_on_card_matches_cpu(cuda, arch, dt):
     cfg = dataclasses.replace(get_config(arch, smoke=True), kv_dtype="fp4",
                               dtype=dt)
     params = quantize_lm_for_serving(dyadic_weights(lm_init(
-        torch.Generator().manual_seed(5), cfg)))
+        torch.Generator().manual_seed(5), cfg)), searched=False)
     toks = torch.randint(0, cfg.vocab, (3, 6),
                          generator=torch.Generator().manual_seed(6))
 
@@ -1013,7 +1013,8 @@ def test_forward_on_card_matches_cpu(cuda, arch, mode):
     from repro_torch.models.lm import forward
     cfg = get_config(arch, smoke=True)
     params = quantize_lm_for_serving(dyadic_weights(lm_init(
-        torch.Generator().manual_seed(7), cfg)), per_channel=True)
+        torch.Generator().manual_seed(7), cfg)), per_channel=True,
+        searched=False)
     toks = torch.randint(0, cfg.vocab, (2, 16),
                          generator=torch.Generator().manual_seed(8))
 
@@ -1076,3 +1077,148 @@ def test_lm_train_step_on_card_matches_cpu(cuda, arch):
         for k in w:
             scale = max(float(w[k].abs().max()), 1e-3 * top)
             assert float((g[k].cpu() - w[k]).abs().max()) <= 1e-5 * scale, k
+
+
+@pytest.fixture
+def one_rank_mesh(cuda):
+    """A 1-rank NCCL process group (made here unless one exists) and the
+    host mesh over it."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_world, make_host_mesh
+    made = init_world(cuda)
+    try:
+        yield make_host_mesh()
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def _bits_equal(a, b) -> bool:
+    from repro_torch.common.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x.reshape(-1).view(torch.uint8),
+                                           y.reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,moe_impl", [("smollm-135m", "global"),
+                                           ("llama4-scout-17b-a16e",
+                                            "global"),
+                                           ("llama4-scout-17b-a16e", "ep")])
+def test_one_rank_mesh_train_step_is_meshless_bit_for_bit(one_rank_mesh,
+                                                          arch, moe_impl):
+    """One make_train_step of the arch's bf16 smoke config on the card,
+    parameters placed by param_shardings and the batch by data_spec as
+    DTensors on the 1-rank NCCL mesh, against the same step on plain
+    tensors: loss, parameters and Adam's moments bit for bit (the MoE
+    runs its global dispatch on every rank, or the expert-parallel
+    all-to-all over the model axis)."""
+    from repro_torch.common.sharding import to_full
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import mesh_scope
+    from repro_torch.launch.sharding import param_shardings, place
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import placed_batch
+    from repro_torch.optim.adam import AdamConfig, adam_init
+    dev, mesh = torch.device("cuda"), one_rank_mesh
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              dtype=torch.bfloat16, moe_impl=moe_impl)
+    params = lm_init(torch.Generator(device=dev).manual_seed(11), cfg, dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 32), device=dev,
+                                     generator=torch.Generator(device=dev)
+                                     .manual_seed(12))}
+    acfg = AdamConfig(lr=1e-3)
+    step = make_train_step(cfg, acfg)
+    wp, wo, wm = step(params, adam_init(params, acfg), batch)
+    with mesh_scope(mesh):
+        dp = place(params, param_shardings(params, mesh))
+        gp, go, gm = step(dp, adam_init(dp, acfg), placed_batch(batch, mesh))
+        gp, go = tree_map(to_full, gp), tree_map(to_full, go)
+    assert torch.equal(gm["loss"].view(torch.int32),
+                       wm["loss"].view(torch.int32))
+    assert _bits_equal(gp, wp)
+    assert _bits_equal(go["m"], wo["m"]) and _bits_equal(go["v"], wo["v"])
+
+
+@pytest.mark.gpu
+def test_one_rank_mesh_decode_step_is_meshless_bit_for_bit(one_rank_mesh):
+    """smollm-135m-smoke, W4 packs, E2M1 acts fused into K2, an FP4 cache:
+    6 teacher-forced decode steps under the 1-rank mesh (the serve
+    launcher's setting: parameters left as they are) against the same
+    steps meshless, logits and caches bit for bit, and the same kernel
+    launches."""
+    from repro_torch.launch.mesh import mesh_scope
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(smollm_smoke(), kv_dtype="fp4",
+                              dtype=torch.bfloat16)
+    params = quantize_lm_for_serving(lm_init(
+        torch.Generator(device=dev).manual_seed(13), cfg, dev),
+        searched=False)
+    toks = torch.randint(0, cfg.vocab, (3, 6), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(14))
+    ctx = QuantContext("serve", act_qps={"*": QuantizerParams(
+        0, 2, 1, 4, torch.tensor(6.0, device=dev))})
+    fns = (k2.w4_matmul_2d_cuda, k45.kv4_store_cuda, k45.kv4_attend_cuda)
+
+    def run():
+        step, caches = make_decode_fn(cfg, ctx=ctx), init_caches(cfg, 3, 6,
+                                                                 dev)
+        before = [f.launches for f in fns]
+        with torch.inference_mode():
+            out = [step(params, caches, toks[:, i:i + 1], i)[0]
+                   for i in range(6)]
+        return out, caches, [f.launches - b for f, b in zip(fns, before)]
+
+    want = run()
+    with mesh_scope(one_rank_mesh):
+        got = run()
+    assert _bits_equal(got[0], want[0]) and _bits_equal(got[1], want[1])
+    assert got[2] == want[2] and min(got[2]) > 0
+
+
+@pytest.mark.gpu
+def test_resumed_train_run_is_bit_exact_on_card(cuda, tmp_path):
+    """The train launcher on the card (smollm-135m-smoke, a 1-rank mesh):
+    4 steps, then restarted from that checkpoint to 8, against 8 steps
+    straight: the same losses and the same parameters and Adam state, bit
+    for bit. The batches repeat whatever the run (zipf_tokens at
+    smollm-135m's vocab, drawn ten times on the card), and so does a bf16
+    MoE forward and backward (the combine adds no atomics)."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.data.synthetic import zipf_tokens
+    from repro_torch.launch import train
+    from repro_torch.nn.moe import MoEConfig, moe_apply, moe_init
+    draws = [zipf_tokens(torch.Generator(device=cuda).manual_seed(7), 8, 512,
+                         49152) for _ in range(10)]
+    assert all(torch.equal(draws[0], d) for d in draws)
+    mcfg = MoEConfig(d_model=64, d_ff=32, n_experts=8, top_k=4)
+    mp = moe_init(torch.Generator(device=cuda).manual_seed(8), mcfg, cuda,
+                  torch.bfloat16)
+    x = torch.randn(2048, 64, device=cuda).to(torch.bfloat16)
+
+    def moe_run():
+        p = {k: v.detach().requires_grad_() for k, v in mp.items()
+             if k != "router"}
+        y = moe_apply({**mp, **p}, x, mcfg)
+        return [y.detach(), *torch.autograd.grad(y.float().square().sum(),
+                                                 list(p.values()))]
+
+    first = moe_run()
+    for _ in range(3):
+        assert _bits_equal(moe_run(), first)
+
+    def launch(d, steps):
+        return train.main(["--arch", "smollm-135m", "--smoke", "--steps",
+                           str(steps), "--batch", "4", "--seq", "64",
+                           "--ckpt-every", "2", "--ckpt-dir", str(d)])
+
+    half = launch(tmp_path / "a", 4)
+    resumed = launch(tmp_path / "a", 8)
+    straight = launch(tmp_path / "b", 8)
+    assert resumed["start"] == 4
+    assert half["losses"] + resumed["losses"] == straight["losses"]
+    assert _bits_equal(resumed["state"], straight["state"])
+    assert len(tree_leaves(straight["state"])) > 3

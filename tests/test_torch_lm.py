@@ -312,7 +312,7 @@ def test_unported_families_raise(kw):
     attention layer, no oracle."""
     cfg = dataclasses.replace(t_config(J_DENSE, **kw), kv_dtype="fp4")
     p = quantize_lm_for_serving(tlm.lm_init(torch.Generator().manual_seed(1),
-                                            cfg))
+                                            cfg), searched=False)
     ctx = QuantContext("serve", act_qps={"*": QuantizerParams(
         0, 2, 1, 4, torch.tensor(6.0))})
     step = make_decode_fn(cfg, ctx=ctx)
@@ -341,7 +341,8 @@ def test_quantize_lm_bytes_match_reference(dt, per_channel):
     jp, tp = _params(jcfg, seed=1)
     jq = flatten_paths(j_quantize(jp, searched=False,
                                   per_channel=per_channel))
-    tq = flatten_paths(quantize_lm_for_serving(tp, per_channel=per_channel))
+    tq = flatten_paths(quantize_lm_for_serving(tp, per_channel=per_channel,
+                                               searched=False))
     assert sorted(jq) == sorted(tq)
     n_packed = 0
     for k, want in jq.items():
@@ -393,6 +394,35 @@ def test_quantize_lm_searched_raises():
     assert (n_searched, n_stacked) == (6, 4)
 
 
+def test_quantize_lm_default_is_searched():
+    """Both packages' default is ``searched=True``: on zamba2's smoke
+    config each side's default packs equal its own ``searched=True``
+    packs byte for byte, and the port's default equals the reference's
+    default."""
+    tp = tlm.lm_init(torch.Generator().manual_seed(2),
+                     t_config(j_zamba2_smoke()))
+    jp = j_tree(tp)
+    j_def, j_on = (flatten_paths(q) for q in (
+        j_quantize(jp), j_quantize(jp, searched=True)))
+    t_def, t_on = (flatten_paths(q) for q in (
+        quantize_lm_for_serving(tp),
+        quantize_lm_for_serving(tp, searched=True)))
+    assert sorted(j_def) == sorted(t_def) == sorted(t_on)
+    n_searched = 0
+    for k, want in j_def.items():
+        if not hasattr(want, "packed"):
+            continue
+        got, on, ref, j_ref = (t_def[k], t_on[k], t_packed(want),
+                               t_packed(j_on[k]))
+        for a, b in ((got, on), (got, ref), (ref, j_ref)):
+            assert (a.exp_bits, a.man_bits, a.signed) == \
+                (b.exp_bits, b.man_bits, b.signed), k
+            for f in ("packed", "scale", "zero_point"):
+                assert torch.equal(getattr(a, f), getattr(b, f)), (k, f)
+        n_searched += got.packed.ndim == 2
+    assert n_searched == 6
+
+
 @pytest.mark.parametrize("per_channel", [False, True])
 def test_slice_gives_each_layer_its_own_pack_and_scale(per_channel):
     """``dyadic_weights`` sets layer g's output column n to absmax
@@ -401,7 +431,8 @@ def test_slice_gives_each_layer_its_own_pack_and_scale(per_channel):
     decode is layer g of the stacked weight's decode."""
     cfg = t_config(J_DENSE)
     tp = quantize_lm_for_serving(dyadic_weights(tlm.lm_init(
-        torch.Generator().manual_seed(3), cfg)), per_channel=per_channel)
+        torch.Generator().manual_seed(3), cfg)), per_channel=per_channel,
+        searched=False)
     stack = tp["blocks"][0]["attn"]["wv"]["w"]
     g_n, n = stack.shape[0], stack.shape[-1]
     col = torch.arange(n) % 4
@@ -456,7 +487,7 @@ def test_decode_step_teacher_forced_matches(name, dt, kv, pc, act, dy,
     tp = tlm.lm_init(torch.Generator().manual_seed(2), tcfg)
     if dy:
         tp = dyadic_weights(tp)
-    tp = quantize_lm_for_serving(tp, per_channel=pc)
+    tp = quantize_lm_for_serving(tp, per_channel=pc, searched=False)
     jp = jax.tree.map(
         lambda v: j_packed(v) if isinstance(v, PackedW4)
         else jnp.asarray(v.float().numpy()).astype(dt), tp,

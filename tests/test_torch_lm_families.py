@@ -177,10 +177,10 @@ def test_convert_carries_packed_family_trees():
         jq = j_quantize(j_tree(moe), searched=False, per_channel=pc)
         got = from_numpy_tree(jax.tree.map(np.asarray, jq), "cpu")
         assert _same_tree(flatten_paths(got), flatten_paths(
-            quantize_lm_for_serving(moe, per_channel=pc))) == 3
+            quantize_lm_for_serving(moe, per_channel=pc, searched=False))) == 3
     for arch in ("zamba2-2.7b", "llama4-scout-17b-a16e"):
         tq = quantize_lm_for_serving(tlm.lm_init(
             torch.Generator().manual_seed(4),
-            t_config(jreg.get_config(arch, smoke=True))))
+            t_config(jreg.get_config(arch, smoke=True))), searched=False)
         got = from_numpy_tree(jax.tree.map(np.asarray, j_tree(tq)), "cpu")
         assert _same_tree(flatten_paths(got), flatten_paths(tq)) == 10

@@ -79,7 +79,7 @@ def _moe(dtype, packed: bool, per_channel: bool):
     tree = {"moe": p}
     if packed:
         tree = quantize_lm_for_serving(dyadic_weights(tree),
-                                       per_channel=per_channel)
+                                       per_channel=per_channel, searched=False)
     x = np.random.default_rng(4).normal(size=(3, 12, 32)).astype(np.float32)
     x[..., 0] = np.abs(x[..., 0]) + 1.0
     return cfg_t, cfg_j, tree["moe"], j_tree(tree)["moe"], x
@@ -135,12 +135,14 @@ def test_expert_packs_split_a_stack_with_its_scales():
     from repro_torch.models.lm import _slice
     w = torch.randn(2, 3, 8, 6, generator=torch.Generator().manual_seed(5))
     for pc in (False, True):
-        stacked = quantize_lm_for_serving({"w_up": w}, per_channel=pc)["w_up"]
+        stacked = quantize_lm_for_serving({"w_up": w}, per_channel=pc,
+                                          searched=False)["w_up"]
         whole = dequant_weight(stacked, torch.float32)
         for g in range(2):
             layer = _slice({"w_up": stacked}, g)["w_up"]
             single = quantize_lm_for_serving({"w_up": w[g]},
-                                             per_channel=pc)["w_up"]
+                                             per_channel=pc,
+                                             searched=False)["w_up"]
             for pack, shared in ((layer, True), (single, False)):
                 for e, pe in enumerate(tmoe.expert_packs(pack)):
                     assert isinstance(pe, PackedW4) and pe.packed.ndim == 2

@@ -518,11 +518,15 @@ def test_launcher_crash_restore_is_bit_exact(tmp_path, monkeypatch):
 
 
 def test_launcher_refuses_mesh_flags():
-    for flags in (["--production-mesh"], ["--multi-pod"],
-                  ["--model-parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="item 13"):
+    """A mesh the world cannot hold raises, naming what it needs (this
+    process is a world of one rank); none is quietly dropped."""
+    for flags, needs in ((["--production-mesh"], "256 ranks"),
+                         (["--production-mesh", "--multi-pod"], "512 ranks"),
+                         (["--model-parallel", "2"], "world of 1 ranks")):
+        with pytest.raises(ValueError, match=needs):
             ttrain.main(["--arch", "smollm-135m", "--smoke", "--device",
                          "cpu", *flags])
+    assert not torch.distributed.is_initialized()
 
 
 def test_launcher_end_to_end(tmp_path):
