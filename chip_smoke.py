@@ -68,12 +68,13 @@ Phases, each fatal on failure (exit code 1, no result line):
      device ms);
   9. every distinct K2/K3 shape launched by the 8 x 10 run of phase 5,
      the serve run of phase 7, phase 12's four serve runs and phase 13's
-     eight prefill runs, and every K2 shape (either mode) of phase 11's
-     mixed_model run (this phase runs after phase 13), checked signed and
-     unsigned by check_close and timed as in phases 3-4, with its launches per forward
-     / per decode step in those runs and launches x ms, and per path the
-     sum of launches x ms beside the K2/K3 device totals of the phase 6,
-     8, 12 and 13 profiles;
+     eight prefill runs, every K2 shape (either mode) of phase 11's
+     mixed_model run and every K2 shape of phase 15(b)'s gemma3-4b
+     decode_32k cell at M 128 (this phase runs after phase 15), checked
+     signed and unsigned by check_close and timed as in phases 3-4, with
+     its launches per forward / per decode step in those runs and
+     launches x ms, and per path the sum of launches x ms beside the K2/K3
+     device totals of the phase 6, 8, 12, 13 and 15(b) profiles;
   10. the paper's pipeline on ddim-cifar10 at full width (pipeline_phase:
      calibration, the MSFP search on the card held against the CPU's on a
      named subset, TALoRA + DFA train steps with K1 and qdq_conv2d
@@ -161,12 +162,39 @@ Phases, each fatal on failure (exit code 1, no result line):
      x S 512): one forward with moe_impl "ep" (the all-to-all over the
      model axis) against "global", logits bit for bit; (d) phase 13(c)'s
      resume, bit for bit; the phase's wall printed;
-  15. a ``kernels`` JSON line (each kernel's launches in all and per path:
+  15. the dry run and the long cache (dryrun_phase): (a) three production
+     cells at full width and depth over fake worlds, each a
+     ``python -m repro_torch.launch.dryrun`` process under the card
+     machine's torch (gemma3-4b decode_32k single W4/FP4, smollm-135m
+     train_4k single, llama4-scout prefill_32k multi W4 moeep), each
+     record ``ok``, its per-device bytes against the card's 80 GB, flops
+     and collective bytes printed; (b) gemma3-4b decode_32k (W4 abs-max
+     under E2M1 acts, FP4 cache, B 128, S 32768, 34 layers) whole on the
+     card on the 1-rank mesh against the dry run's record for the same
+     cell on a 1-rank fake world: the arguments' bytes equal the
+     prediction's leaf by leaf (rounded to the allocator's 512 B), the
+     caches filled through kv4_store, three decode steps each within
+     PEAK_LIMIT (2 MiB) of the predicted step peak, which the prediction through
+     the plain routes must break, the launches a step (K2 W4A4 238,
+     kv4_store and kv4_attend 34, K1 1), the walls and a profiled step's
+     busy time; (c) kv4_attend past one block's shared memory
+     (KV4_LONG, the logits in the global workspace) held to
+     kv4_attend_allowed, bit for bit to its plain version summed in the
+     kernel's order, and timed beside SDPA and the bound, and at 2048
+     slots the two paths' bits equal; (d) gemma3-4b over a 32768-slot
+     cache, 3 teacher-forced steps at batch 8 from each of three seeds'
+     caches and tokens, every launch of the first held against its plain
+     version, the logits against the plain versions' with kv4_attend's
+     summed in the kernel's order within KERNELS_VS_PLAIN_LIMIT (1e-5, as
+     phase 12), and against the plain versions as they stand (cuBLAS's sum
+     order) read (a control, kv4_attend one slot short, breaks the holds
+     and the limit);
+  16. a ``kernels`` JSON line (each kernel's launches in all and per path:
      per forward for ddim-cifar10, per decode step for smollm-135m and
      phase 12's models, per train step for the pipeline, per forward or
      decode step by model for the gateway's mixed_model run, per forward
-     for the fleet's runs, phase 13's prefill runs and phase 14's meshed
-     decode), the card line, and the result line.
+     for the fleet's runs, phase 13's prefill runs, phase 14's meshed
+     decode and phase 15's cell), the card line, and the result line.
 Needs one card; exits non-zero without one or without the repo around it.
 """
 from __future__ import annotations
@@ -681,7 +709,9 @@ def serve(name: str, argv: list[str]) -> dict:
 WRAPPERS = {"w4a4_matmul": ("w4_matmul", "w4_matmul_2d_cuda"),
             "w4a4_conv2d": ("conv", "w4a4_conv2d_implicit_cuda"),
             "qdq_conv2d": ("msfp_quant", "qdq_conv2d_cuda"),
-            "msfp_qdq": ("msfp_quant", "msfp_qdq_2d_cuda")}
+            "msfp_qdq": ("msfp_quant", "msfp_qdq_2d_cuda"),
+            "kv4_store": ("kv4", "kv4_store_cuda"),
+            "kv4_attend": ("kv4", "kv4_attend_cuda")}
 
 
 @contextlib.contextmanager
@@ -759,12 +789,16 @@ def check_shapes(name: str, shapes: collections.Counter, counts: dict):
 
 def plain_kernels(names=("w4a4_matmul", "w4a4_conv2d", "qdq_conv2d")):
     """The named kernels (K2, K3 and the io sites' qdq_conv2d by default;
-    K1 as ``msfp_qdq``) dispatch CUDA tensors to their plain versions (on
-    the card) while the context is open."""
+    K1 as ``msfp_qdq``; the decode path's ``kv4_store`` and
+    ``kv4_attend``) dispatch CUDA tensors to their plain versions (on the
+    card) while the context is open."""
     from repro_torch.kernels import conv as k3
+    from repro_torch.kernels import kv4 as k45
     from repro_torch.kernels import msfp_quant as k1
     from repro_torch.kernels import w4_matmul as k2
-    plain = {"w4a4_matmul": lambda *a, **kw: k2.w4_matmul_2d_plain(*a, **kw),
+    plain = {"kv4_store": lambda *a, **kw: k45.kv4_store_plain(*a, **kw),
+             "kv4_attend": lambda *a, **kw: k45.kv4_attend_plain(*a, **kw),
+             "w4a4_matmul": lambda *a, **kw: k2.w4_matmul_2d_plain(*a, **kw),
              "w4a4_conv2d":
                  lambda *a, **kw: k3.w4a4_conv2d_implicit_plain(*a, **kw),
              "qdq_conv2d": lambda *a, **kw: k1.qdq_conv2d_plain(*a, **kw),
@@ -3868,6 +3902,695 @@ def mesh_phase(dev, resume: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the dry run on the card's machine; gemma3-4b decode_32k (W4,
+# FP4 KV) whole on the card against its prediction; kv4_attend past one
+# block's shared memory.
+# ---------------------------------------------------------------------------
+
+# (a) production cells at full width and depth over fake worlds, each a
+# process of its own (the dry run owns its default process group)
+DRYRUN_CELLS = {
+    "gemma3-4b decode_32k single w4 fp4": [
+        "--arch", "gemma3-4b", "--shape", "decode_32k", "--mesh", "single",
+        "--quant", "w4", "--kv", "fp4"],
+    "smollm-135m train_4k single": [
+        "--arch", "smollm-135m", "--shape", "train_4k", "--mesh", "single"],
+    "llama4-scout-17b-a16e prefill_32k multi w4 moeep": [
+        "--arch", "llama4-scout-17b-a16e", "--shape", "prefill_32k",
+        "--mesh", "multi", "--quant", "w4", "--opts", "moeep"]}
+# (b)'s prediction on the card's one-rank mesh, and the control traced
+# through the kernels' plain versions
+PREDICTION_ARGV = ["--arch", "gemma3-4b", "--shape", "decode_32k",
+                   "--mesh-shape", "1,1", "--quant", "w4", "--kv", "fp4"]
+DRYRUN_RUNS = {**DRYRUN_CELLS, "prediction": PREDICTION_ARGV,
+               "control": PREDICTION_ARGV + ["--plain-routes"]}
+CARD_BYTES = 80e9             # an H100's device memory
+CELL_B, CELL_S, CELL_STEPS = 128, 32768, 3   # decode_32k's batch and cache
+# (b): the step's peak above its arguments, card against prediction, in
+# bytes either way. Set from the readings: on an NVIDIA H100 80GB HBM3 at
+# 700.00 W all three steps' peaks equalled the prediction (137103360 B) to
+# the byte, so the limit is a few MiB of allocator rounding; a doubled or
+# leaked kv4_attend workspace (134217728 B at this cell) breaks it, as
+# does the plain-route control (64.5 GB)
+PEAK_LIMIT = 2 * 2**20
+ALLOC_ROUND = 512             # the caching allocator's smallest block
+# (c): kv4_attend past one block's shared memory: (B, n_kv, G, hd, slots)
+KV4_LONG = ((8, 4, 2, 256, 32768), (8, 8, 5, 128, 16384))
+# (d): gemma3-4b at B 8 over a 32768-slot cache, 3 teacher-forced steps
+# from each seed's cache and tokens (seed 0 with every launch held against
+# its plain version on its own inputs: K2 and K1 bit for bit on
+# power-of-two scales, kv4_store's slot bit for bit, kv4_attend within
+# kv4_attend_allowed). The logits through the kernels are held as phase 12
+# holds them (KERNELS_VS_PLAIN_LIMIT, relative Frobenius) against the plain
+# versions with kv4_attend's plain version summed in the kernel's order
+# (kv4_attend_index_order). Against the plain version as it stands
+# (cuBLAS's order of the same f32 sums, which at 32768 slots is not the
+# kernel's index order) the logits are read and printed, not held: a sum
+# an ulp apart moves an E2M1 act code at the next dense site, and that
+# moves whole decode steps (ROADMAP Queue C; an NVIDIA H100 80GB HBM3 at
+# 700.00 W read 0.129 at seed 0)
+LONG_DECODE_B = 8
+LONG_DECODE_SEEDS = (0, 1, 2)
+
+
+def start_dryruns(tmp: str) -> dict:
+    """Phase 15(a): every DRYRUN_RUNS entry started as
+    ``python -m repro_torch.launch.dryrun``, each writing its record under
+    its own directory of ``tmp``; the CPU traces run while the card works
+    on (c) and (d)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = {}
+    for name, argv in DRYRUN_RUNS.items():
+        out = pathlib.Path(tmp) / name.replace(" ", "_")
+        procs[name] = (out, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--out", str(out)], cwd=str(ROOT), env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    return procs
+
+
+def finish_dryruns(procs: dict) -> dict:
+    """Phase 15(a): each run's record, which must read ok; the production
+    cells' per-device bytes (against the card's 80 GB), flops and
+    collective bytes by op printed."""
+    recs, failed = {}, []
+    for name, (out, t0, p) in procs.items():
+        try:
+            log, _ = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for _, _, q in procs.values():
+                q.kill()
+            fail(f"dry run {name}: no record within 600 s")
+        files = sorted(out.glob("*.json"))
+        rec = json.loads(files[0].read_text()) if files else {}
+        if p.returncode != 0 or not rec.get("ok"):
+            print(f"dry run {name} (rc {p.returncode}) FAILED: "
+                  f"{rec.get('error', '')}\n{log[-3000:]}", flush=True)
+            failed.append(name)
+            continue
+        rec["wall_s"] = time.perf_counter() - t0
+        recs[name] = rec
+        if name not in DRYRUN_CELLS:
+            continue
+        mem = rec["memory"]
+        held = (mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
+                + mem["temp_size_in_bytes"])
+        print(f"dry run {name} ({rec['chips']} fake ranks, torch "
+              f"{__import__('torch').__version__}): ok; per device "
+              f"arguments {mem['argument_size_in_bytes'] / 1e9:.3f} GB, "
+              f"outputs {mem['output_size_in_bytes'] / 1e9:.3f} GB, temp "
+              f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB: "
+              f"{held / 1e9:.3f} GB against {CARD_BYTES / 1e9:.0f} GB; "
+              f"flops {rec['cost']['flops']:.4g}, bytes accessed "
+              f"{rec['cost']['bytes accessed']:.4g}, collectives by op "
+              f"{ {k: f'{v / 1e9:.3f} GB' for k, v in rec['collectives']['bytes_by_op'].items()} }"
+              f"; traced in {rec['compile_s']} s ({rec['ops']} local ops), "
+              f"run wall {rec['wall_s']:.1f} s", flush=True)
+    if failed:
+        fail(f"dry runs {failed} did not read ok")
+    return recs
+
+
+def kv4_long_checks(dev) -> dict:
+    """Phase 15(c): kv4_attend at KV4_LONG, every slot valid, bf16, on a
+    cache of finite garbage (random codes, f16 scales in [0, 4)): the
+    logits past one block's shared memory go to the global workspace, held
+    to kv4_attend_allowed against the plain version and bit for bit against
+    kv4_attend_index_order (the plain version summed in the kernel's
+    order), and timed by CUDA-graph
+    replays beside SDPA over the decoded cache and the bound (as
+    kv4_pair_checks); at 2048 slots, at smollm-135m's and gemma3-4b's
+    heads, the shared-memory path and a forced workspace launch give the
+    same bits."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import kv4 as k45
+    gen = torch.Generator().manual_seed(15)
+
+    def cache(b, slots, n_kv, hd):
+        codes = (b, slots, n_kv, hd // 2)
+        return [torch.randint(0, 256, codes, generator=gen,
+                              dtype=torch.uint8).to(dev) for _ in range(2)] \
+            + [(torch.rand(b, slots, n_kv, generator=gen) * 4).half().to(dev)
+               for _ in range(2)]
+
+    def draw(*shape):
+        return (torch.randn(*shape, generator=gen) * 8).to(dev,
+                                                           torch.bfloat16)
+
+    rows, same = [], {}
+    for b, n_kv, g, hd in ((B, 3, 3, 64), (B, 4, 2, 256)):
+        c, q = cache(b, 2048, n_kv, hd), draw(b, n_kv, g, hd)
+        args = (2048, hd ** -0.5, None)
+        shared = k45.kv4_attend_cuda(q, *c, *args, workspace=False)
+        ws = k45.kv4_attend_cuda(q, *c, *args, workspace=True)
+        label = f"B{b} S2048 K{n_kv} G{g} hd{hd} bf16"
+        if not torch.equal(shared.view(torch.int16), ws.view(torch.int16)):
+            fail(f"kv4_attend {label}: the workspace path's bits differ "
+                 "from the shared-memory path's")
+        same[label] = {
+            "shared_ms": cuda_ms(lambda: k45.kv4_attend_cuda(
+                q, *c, *args, workspace=False)),
+            "workspace_ms": cuda_ms(lambda: k45.kv4_attend_cuda(
+                q, *c, *args, workspace=True))}
+        print(f"kv4_attend {label}: the workspace path equals the "
+              f"shared-memory path bit for bit; {same[label]['shared_ms']:.4f}"
+              f" ms shared, {same[label]['workspace_ms']:.4f} ms workspace",
+              flush=True)
+        del c, q, shared, ws
+    for b, n_kv, g, hd, slots in KV4_LONG:
+        if k45.attend_logits_shared(g, hd, slots):
+            fail(f"kv4_attend G{g} hd{hd} S{slots} would not take the "
+                 "workspace path")
+        c, q = cache(b, slots, n_kv, hd), draw(b, n_kv, g, hd)
+        args = (slots, hd ** -0.5, None)
+        got = k45.kv4_attend_cuda(q, *c, *args)
+        want = k45.kv4_attend_plain(q, *c, *args)
+        allowed = k45.kv4_attend_allowed(q, *c, *args, want)
+        diff = (got.double() - want.double()).abs()
+        label = f"B{b} S{slots} valid {slots} K{n_kv} G{g} hd{hd} bf16"
+        if bool((diff > allowed).any()):
+            fail(f"kv4_attend {label}: {int((diff > allowed).sum())} "
+                 f"elements outside kv4_attend_allowed (max abs err "
+                 f"{float(diff.max()):.3g})")
+        witness = kv4_attend_index_order(q, *c, *args)
+        if not torch.equal(got.view(torch.int16), witness.view(torch.int16)):
+            fail(f"kv4_attend {label}: the kernel's bits differ from its "
+                 "plain version summed in the kernel's order")
+        n_off_plain = int((got != want).sum())
+        del witness
+        err = float(diff.max())
+        share = float((diff / allowed).max())
+        del allowed, diff
+        ms = cuda_ms(lambda: k45.kv4_attend_cuda(q, *c, *args))
+        plain_ms = cuda_ms(lambda: k45.kv4_attend_plain(q, *c, *args))
+        keys, vals = (k45._decode_cache(x, sc, torch.bfloat16)
+                      .transpose(1, 2).contiguous()
+                      for x, sc in ((c[0], c[2]), (c[1], c[3])))
+        qs = q.reshape(b, n_kv * g, 1, hd)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, keys, vals, enable_gqa=True))
+        b_ms, b_by = bound(
+            4.0 * b * n_kv * g * slots * hd,
+            2 * 2 * b * n_kv * g * hd + 2 * b * slots * n_kv * (hd // 2 + 2),
+            f32_ops=2.0 * 2 * b * n_kv * slots * hd)
+        print(f"kv4_attend {label} (logits in the global workspace): max "
+              f"abs err {err:.3g}, largest share of the allowance "
+              f"{share:.3g}, {n_off_plain} elements off the plain version's "
+              "bits, none off those of the plain version summed in the "
+              f"kernel's order; {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+              f"over the decoded cache {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})", flush=True)
+        rows.append(dict(
+            shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library="F.scaled_dot_product_attention(enable_gqa=True), "
+                    "attention only, cache pre-decoded",
+            logits="global workspace"))
+        del c, q, got, want, keys, vals, qs
+        free_card()
+    return {"rows": rows, "same_bits_2048": same}
+
+
+def garbage_cache(caches, upto: int, gen) -> None:
+    """Random codes and f16 scales in [0, 4) written into every FP4 cache
+    of ``caches`` (a tree of local tensors) below slot ``upto``."""
+    import torch
+    from repro_torch.common.tree import flatten_paths
+    for path, t in flatten_paths(caches).items():
+        t = t.to_local() if hasattr(t, "to_local") else t
+        s_dim = t.ndim - (2 if path.endswith("_scale") else 3)
+        n = min(upto, t.shape[s_dim])
+        part = t.narrow(s_dim, 0, n)
+        if t.dtype == torch.uint8:
+            part.copy_(torch.randint(0, 256, part.shape, generator=gen,
+                                     dtype=torch.uint8))
+        else:
+            part.copy_((torch.rand(part.shape, generator=gen) * 4).half())
+
+
+def fma_is_fused(dev) -> None:
+    """kv4_attend_index_order's chains rest on ``torch.addcmul_`` being one
+    fused multiply-add on the card, as the kernel's fmaf is: (1 + 2^-13)
+    (1 - 2^-13) - 1 is -2^-26 fused and 0 with the product rounded first
+    (broadcast operands, as the chains give them)."""
+    import torch
+    acc = torch.full((4, 2, 8), -1.0, device=dev)
+    acc.addcmul_(torch.full((4, 2, 1), 1 + 2**-13, device=dev),
+                 torch.full((4, 1, 8), 1 - 2**-13, device=dev))
+    if not bool((acc == -2.0**-26).all()):
+        fail("torch.addcmul_ on the card is not a fused multiply-add: the "
+             "kernel-order witness cannot stand in for kv4_attend's sums")
+
+
+def kv4_attend_index_order(q, k, v, k_scale, v_scale, valid_len, scale,
+                           softcap=None, **_):
+    """kv4_attend's plain version with its f32 sums in the kernel's order
+    (csrc/kv4.cu:kv4_attend_kernel), from torch ops alone: a logit one FMA
+    chain over h = 0..hd-1 from zero, times the scale, the softcap; the
+    softmax's sum per thread t < 128 over slots t, t + 128, ..., then a
+    butterfly over each warp's 32 lanes and the four warps added in order;
+    the weights divided by it and rounded to the load dtype; an output one
+    FMA chain over s = 0..valid-1 from zero, rounded to the load dtype.
+    Each decoded value is K5's (kv4._decode_cache), as in the plain
+    version. ``addcmul_`` is the FMA (fma_is_fused)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import kv4 as k45
+    dt, n = q.dtype, int(valid_len)
+    b, n_kv, g, hd = q.shape
+    keys = k45._decode_cache(k[:, :n], k_scale[:, :n], dt).float()
+    qf = q.float()
+    kt = keys.permute(0, 2, 3, 1)                    # (B, K, hd, n)
+    lg = torch.zeros(b, n_kv, g, n, device=q.device)
+    for h in range(hd):
+        lg.addcmul_(qf[..., h, None], kt[:, :, None, h])
+    del keys, kt
+    lg = lg * scale
+    if softcap:
+        lg = softcap * torch.tanh(lg / softcap)
+    e = torch.exp(lg - lg.amax(-1, keepdim=True))
+    per = F.pad(e, (0, -n % 128)).unflatten(-1, (-1, 128))
+    part = per[..., 0, :].clone()
+    for c in range(1, per.shape[-2]):
+        part += per[..., c, :]
+    lanes = part.unflatten(-1, (4, 32))
+    idx = torch.arange(32, device=q.device)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., idx ^ off]
+    r = lanes[..., 0]
+    total = ((r[..., 0] + r[..., 1]) + r[..., 2]) + r[..., 3]
+    w = (e / total[..., None]).to(dt).float()
+    vals = k45._decode_cache(v[:, :n], v_scale[:, :n], dt).float()
+    ws = w.unsqueeze(-2).unbind(-1)                  # n x (B, K, G, 1)
+    vs = vals.permute(0, 2, 1, 3).unsqueeze(2).unbind(3)  # n x (B, K, 1, hd)
+    o = torch.zeros(b, n_kv, g, hd, device=q.device)
+    for i in range(n):
+        o.addcmul_(ws[i], vs[i])
+    return o.to(dt)
+
+
+def long_decode_checks(dev) -> dict:
+    """Phase 15(d): gemma3-4b at full width, W4A4 on steps.dyadic_weights
+    with the FP4 cache, B 8 over a 32768-slot cache of finite garbage below
+    slot 32765, three teacher-forced steps at positions 32765-32767 (the
+    global and first_k_dense layers attend over up to 32768 slots through
+    the workspace path; the local layers over their 1024-slot rings), for
+    each LONG_DECODE_SEEDS seed's cache and tokens: through the kernels
+    (seed 0 with every launch held), through their plain versions with
+    kv4_attend's summed in the kernel's order (the witness), and through
+    their plain versions as they stand, on the card from the same caches.
+    The kernels' logits against the witness's are held to
+    KERNELS_VS_PLAIN_LIMIT as phase 12 holds them; against the plain
+    versions' they are read. A control, kv4_attend one slot short, must
+    break both the launch holds and the limit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import (dyadic_weights, make_decode_fn,
+                                          quantize_lm_for_serving)
+    from repro_torch.models.lm import init_caches, lm_init
+    t0 = time.perf_counter()
+    fma_is_fused(dev)
+    cfg = dataclasses.replace(family_config("gemma3-4b"), kv_dtype="fp4")
+    packed = quantize_lm_for_serving(dyadic_weights(lm_init(
+        torch.Generator(device=dev).manual_seed(0), cfg, dev)),
+        searched=False)
+    free_card()
+    first = CELL_S - CELL_STEPS
+    name = "gemma3-4b decode over 32768 slots"
+    others = ("w4a4_matmul", "msfp_qdq", "kv4_store")
+
+    def run(base, toks):
+        from repro_torch.common.tree import tree_map
+        caches = tree_map(lambda t: t.clone(), base)
+        step = make_decode_fn(cfg, ctx=serve_ctx(dev))
+        out = []
+        with torch.inference_mode():
+            for i in range(CELL_STEPS):
+                lg, caches = step(packed, caches, toks[:, i:i + 1].to(dev),
+                                  first + i)
+                out.append(lg.float().cpu())
+        return torch.stack(out).double().numpy()
+
+    def reading(a, b) -> dict:
+        return {"rel_frobenius": float(np.linalg.norm(a - b)
+                                       / max(np.linalg.norm(b), 1e-30)),
+                "max_abs_over_max": float(np.abs(a - b).max()
+                                          / np.abs(b).max()),
+                "argmax_equal": bool((a.argmax(-1) == b.argmax(-1)).all())}
+
+    def short(f):
+        def attend(q, k, v, ks, vs, valid, *a, **kw):
+            return f(q, k, v, ks, vs, valid - 1, *a, **kw)
+        return attend
+
+    seeds, held, held4, held_c, ctrl, per_step = {}, None, None, None, None, None
+    for seed in LONG_DECODE_SEEDS:
+        t1 = time.perf_counter()
+        base = init_caches(cfg, LONG_DECODE_B, CELL_S, dev)
+        garbage_cache(base, first, torch.Generator().manual_seed(16 + seed))
+        toks = torch.randint(0, cfg.vocab, (LONG_DECODE_B, CELL_STEPS),
+                             generator=torch.Generator().manual_seed(1 + seed))
+        reset_counts()
+        if seed == LONG_DECODE_SEEDS[0]:
+            with held_launches(name, exact=True) as held, \
+                    held_kv4(name, strict=True) as held4:
+                g = run(base, toks)
+            counts = launch_counts()
+            per_step = {k: counts[k] / CELL_STEPS
+                        for k in ("w4a4_matmul", "kv4_store", "kv4_attend",
+                                  "msfp_qdq")}
+        else:
+            g = run(base, toks)
+        if not np.isfinite(g).all():
+            fail(f"{name} (seed {seed}) is not finite")
+        with plain_kernels(others), wrapped_kernels(
+                {"kv4_attend": lambda _: kv4_attend_index_order}):
+            gw = run(base, toks)
+        with plain_kernels(others + ("kv4_attend",)):
+            gp = run(base, toks)
+        if seed == LONG_DECODE_SEEDS[0]:
+            with wrapped_kernels({"kv4_attend": short}), \
+                    held_kv4(name + " (control)", strict=False) as held_c:
+                ctrl = reading(run(base, toks), gw)
+        seeds[seed] = {"kernels_vs_witness": reading(g, gw),
+                       "kernels_vs_plain": reading(g, gp),
+                       "witness_vs_plain": reading(gw, gp),
+                       "wall_s": time.perf_counter() - t1}
+        print(f"decode gemma3-4b W4A4 FP4-KV B={LONG_DECODE_B}, seed {seed}, "
+              f"{CELL_STEPS} teacher-forced steps at positions {first}-"
+              f"{CELL_S - 1} of a {CELL_S}-slot cache, dyadic weights, on "
+              f"the card: {seeds[seed]}", flush=True)
+        del base
+        free_card()
+    print(f"{name}: every launch of seed {LONG_DECODE_SEEDS[0]} held: K2/K1 "
+          f"{held}, kv4 {held4}; the kernels vs the kernel-order witness "
+          f"held to <= {KERNELS_VS_PLAIN_LIMIT:g}; the control, kv4_attend "
+          f"one slot short, vs the witness: {ctrl}, launches outside their "
+          f"hold {held_c}; launches a step {per_step} (wall "
+          f"{time.perf_counter() - t0:.1f}s)", flush=True)
+    if held_c["kv4_attend"]["outside"] == 0:
+        fail(f"{name}: kv4_attend one slot short passes every launch's "
+             "hold: the hold would not see it")
+    if ctrl["rel_frobenius"] <= KERNELS_VS_PLAIN_LIMIT:
+        fail(f"{name}: kv4_attend one slot short passes the check "
+             f"({ctrl['rel_frobenius']:.3g}): it would not see it")
+    if per_step["kv4_attend"] != 34 or per_step["kv4_store"] != 34:
+        fail(f"{name}: launches a step {per_step}")
+    for seed, r in seeds.items():
+        d = r["kernels_vs_witness"]["rel_frobenius"]
+        if d > KERNELS_VS_PLAIN_LIMIT:
+            fail(f"{name} (seed {seed}) through the kernels disagrees with "
+                 f"the plain versions summed in the kernel's order ({d:.3g} "
+                 f"> {KERNELS_VS_PLAIN_LIMIT:g})")
+    del packed
+    free_card()
+    return {"seeds": seeds, "limit": KERNELS_VS_PLAIN_LIMIT,
+            "control_one_slot_short": ctrl, "held": held,
+            "held_kv4": held4, "control_held_kv4": held_c,
+            "launches_per_step": per_step,
+            "wall_s": time.perf_counter() - t0}
+
+
+@contextlib.contextmanager
+def held_kv4(name: str, strict: bool):
+    """While the context is open, each kv4_store launch on the card is
+    held bit for bit against K4's plain encode of its token at its slot,
+    and each kv4_attend launch against its plain version on the same
+    inputs within kv4_attend_allowed. ``strict``: a launch outside fails
+    the run; else it is counted. Yields a dict by kernel: launches held,
+    launches outside, largest difference (kv4_attend)."""
+    import torch
+    from repro_torch.kernels import kv4 as k45
+    held = {k: {"launches": 0, "outside": 0, "max_abs_err": 0.0}
+            for k in ("kv4_store", "kv4_attend")}
+
+    def outside(kernel, n, what):
+        h = held[kernel]
+        h["outside"] += int(n > 0)
+        if n and strict:
+            fail(f"{name}: {kernel} launch {h['launches']}: {what}")
+
+    def store(f):
+        def launch(k_new, v_new, k, v, ks, vs, pos):
+            f(k_new, v_new, k, v, ks, vs, pos)
+            held["kv4_store"]["launches"] += 1
+            n = 0
+            for t, codes, scales in ((k_new, k, ks), (v_new, v, vs)):
+                want_c, want_s = k45.kv4_encode_2d_plain(
+                    t.reshape(-1, t.shape[-1]))
+                n += int((codes[:, pos].reshape(want_c.shape)
+                          != want_c).sum())
+                n += int((scales[:, pos].reshape(-1).view(torch.int16)
+                          != want_s.view(torch.int16)).sum())
+            outside("kv4_store", n, f"{n} bytes differ at slot {pos}")
+        return launch
+
+    def attend(f):
+        def launch(q, k, v, ks, vs, valid, scale, softcap=None, **kw):
+            y = f(q, k, v, ks, vs, valid, scale, softcap, **kw)
+            h = held["kv4_attend"]
+            h["launches"] += 1
+            args = (valid, scale, softcap)
+            want = k45.kv4_attend_plain(q, k, v, ks, vs, *args)
+            allowed = k45.kv4_attend_allowed(q, k, v, ks, vs, *args, want)
+            diff = (y.double() - want.double()).abs()
+            h["max_abs_err"] = max(h["max_abs_err"], float(diff.max()))
+            outside("kv4_attend", int((diff > allowed).sum()),
+                    "elements outside kv4_attend_allowed")
+            return y
+        return launch
+
+    with wrapped_kernels({"kv4_store": store, "kv4_attend": attend}):
+        yield held
+
+
+def on_mesh(tree, shardings):
+    """Each tensor of ``tree`` as a DTensor on its sharding with itself as
+    the local shard: on the one-rank mesh every placement is whole, and
+    nothing is copied (the 43 GB of caches could not be)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.sharding import _leaves_with_path, _map_leaves
+    flat = dict(_leaves_with_path(shardings))
+    return _map_leaves(lambda p, t: DTensor.from_local(
+        t, flat[p].mesh, flat[p].placements, run_check=False), tree)
+
+
+def cell_on_card(dev, prediction: dict, control: dict) -> dict:
+    """Phase 15(b): the dry-run cell gemma3-4b decode_32k W4 (abs-max packs,
+    acts snapped to E2M1 by K2 and K1) with the FP4 cache, whole on the
+    card: B 128, S 32768, all 34 layers, parameters, caches and token
+    DTensors on the 1-rank NCCL mesh. The arguments' bytes requested of
+    the allocator after placement, less the baseline, equal the
+    prediction's leaves (the position is a Python int on the card); the
+    bytes it allocated lie at or above them rounded up leaf by leaf to
+    its 512 bytes, by less than 1 MiB a leaf (a large block whose
+    segment's tail is too small to split is allocated whole). The caches
+    are filled through kv4_store with drawn k and v below slot 32765, then
+    three decode steps at positions 32765-32767; each step's peak above what it
+    started with is held within PEAK_LIMIT bytes of the prediction's
+    ``step_peak_bytes``, which the control (the same trace through the
+    kernels' plain versions) must break. The steps' walls, the third
+    step's device-busy time (profiled) and the launches a step."""
+    import dataclasses
+
+    import torch
+    from repro_torch.common.sharding import NamedSharding
+    from repro_torch.kernels import kv4 as k45
+    from repro_torch.launch.mesh import make_host_mesh, mesh_scope
+    from repro_torch.launch.sharding import (cache_shardings, data_spec,
+                                             param_shardings)
+    from repro_torch.launch.steps import (make_decode_fn,
+                                          quantize_lm_for_serving)
+    from repro_torch.models.lm import init_caches, lm_init
+    print(f"--- gemma3-4b decode_32k W4 FP4-KV whole on the card (B "
+          f"{CELL_B}, S {CELL_S}, 34 layers) against its dry run",
+          flush=True)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(family_config("gemma3-4b"), kv_dtype="fp4")
+    mesh = make_host_mesh()
+    free_card()
+
+    def requested():
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+    base, base_asked = torch.cuda.memory_allocated(), requested()
+    with torch.no_grad():
+        params = quantize_lm_for_serving(lm_init(
+            torch.Generator(device=dev).manual_seed(0), cfg, dev),
+            searched=False)
+        params = on_mesh(params, param_shardings(params, mesh))
+        caches = init_caches(cfg, CELL_B, CELL_S, dev)
+        caches = on_mesh(caches, cache_shardings(caches, mesh))
+        tokens = torch.randint(0, cfg.vocab, (CELL_STEPS, CELL_B, 1),
+                               generator=torch.Generator().manual_seed(2),
+                               dtype=torch.int32)
+        token = on_mesh(tokens[0].to(dev), NamedSharding(
+            mesh, data_spec((CELL_B, 1), mesh)))
+    free_card()
+    args = torch.cuda.memory_allocated() - base
+    asked = requested() - base_asked
+    # the position is a Python int on the card (the record's leaf "#3")
+    leaves = [n for path, (n, _) in prediction["argument_leaves"].items()
+              if path != "#3"]
+    want = sum(leaves)
+    rounded = sum(-(-n // ALLOC_ROUND) * ALLOC_ROUND for n in leaves)
+    read = prediction["memory"]["argument_size_in_bytes"]
+    print(f"arguments on the card: {asked} bytes requested of the allocator "
+          f"({asked / 1e9:.3f} GB), held to the dry run's {want} (its "
+          f"{len(leaves)} leaves; {read} the leaves the step reads); {args} "
+          f"bytes allocated against the leaves rounded up to {ALLOC_ROUND} "
+          f"B, {rounded} ({args - rounded} more: a large block whose "
+          "segment's tail is too small to split is allocated whole)",
+          flush=True)
+    if asked != want:
+        fail(f"cell on the card: arguments take {asked} bytes, the dry run "
+             f"predicts {want}")
+    if not 0 <= args - rounded < len(leaves) * 2**20:
+        fail(f"cell on the card: {args} bytes allocated for arguments the "
+             f"dry run rounds to {rounded}")
+
+    # the caches through kv4_store, slot by slot, below the first step
+    first = CELL_S - CELL_STEPS
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pool = [(torch.randn(CELL_B, cfg.n_kv, cfg.hd, generator=gen, device=dev)
+             * 2).bfloat16() for _ in range(8)]
+    t1 = time.perf_counter()
+    n_stores = 0
+
+    def fill(c, n):
+        nonlocal n_stores
+        lc = [c[k].to_local() for k in ("k", "v", "k_scale", "v_scale")]
+        for s in range(n):
+            k45.kv4_store_cuda(pool[s % 8], pool[(s + 3) % 8], *lc, s)
+        n_stores += n
+
+    for i in range(cfg.first_k_dense):
+        fill(caches[f"dense_{i}"], first)
+    for pos_i, (_, window, _) in enumerate(cfg.layer_pattern):
+        stack = caches["blocks"][pos_i]
+        for g in range(cfg.n_groups):
+            fill({k: v[g] for k, v in stack.items()},
+                 min(window, CELL_S) if window else first)
+    _sync()
+    fill_s = time.perf_counter() - t1
+    del pool
+    free_card()
+    print(f"caches filled through kv4_store: {n_stores} launches in "
+          f"{fill_s:.1f} s", flush=True)
+
+    step = make_decode_fn(cfg, ctx=serve_ctx(dev))
+    walls, peaks, logits = [], [], None
+
+    def one(i, profile=False):
+        nonlocal logits, caches
+        logits = None
+        tok = on_mesh(tokens[i].to(dev), NamedSharding(
+            mesh, data_spec((CELL_B, 1), mesh)))
+        free_card()
+        _sync()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def go():
+            nonlocal logits, caches
+            with mesh_scope(mesh), torch.no_grad():
+                logits, caches = step(params, caches, tok, first + i)
+
+        if profile:
+            prof = profiled(go)
+        else:
+            t = time.perf_counter()
+            go()
+            _sync()
+            walls.append((time.perf_counter() - t) * 1e3)
+            prof = None
+        peaks.append(torch.cuda.max_memory_allocated() - before)
+        return prof
+
+    def drive():
+        one(0)
+        one(1)
+        return one(2, profile=True)
+
+    run = driven("gemma3-4b decode_32k on the card", drive,
+                 ("w4a4_matmul", "kv4_store", "kv4_attend", "msfp_qdq"),
+                 {("matmul", "torch_f32")})
+    prof = run["out"]
+    lg = logits.to_local() if hasattr(logits, "to_local") else logits
+    if tuple(lg.shape) != (CELL_B, 1, cfg.vocab) or not bool(
+            torch.isfinite(lg).all()):
+        fail(f"cell on the card: logits {tuple(lg.shape)} not finite")
+    counts = run["counts"]
+    modes = k2_modes(run["shapes"])
+    per_step = {"w4a4": modes["w4a4"] / CELL_STEPS,
+                "weight_only": modes["weight_only"] / CELL_STEPS,
+                **{k: counts[k] / CELL_STEPS
+                   for k in ("kv4_store", "kv4_attend", "msfp_qdq")}}
+    if per_step != FAMILY_LAUNCHES["gemma3-4b"]:
+        fail(f"cell on the card: launches a step {per_step}, expected "
+             f"{FAMILY_LAUNCHES['gemma3-4b']}")
+    pred, ctrl = prediction["step_peak_bytes"], control["step_peak_bytes"]
+
+    def within(x):
+        return abs(x - pred) <= PEAK_LIMIT
+
+    print(f"step peaks above the arguments on the card {peaks} bytes; the "
+          f"dry run predicts {pred} (kernel routes; temp "
+          f"{prediction['memory']['temp_size_in_bytes']}), held to "
+          f"+-{PEAK_LIMIT / 2**20:g} MiB; the control "
+          f"through the plain routes predicts {ctrl} ({ctrl / 1e9:.2f} GB); "
+          f"step walls {[round(w, 2) for w in walls]} ms, the profiled "
+          f"step's wall {prof['profile_wall_ms']:.2f} ms, device busy "
+          f"{prof['busy_ms']:.2f} ms (idle share {prof['idle_share']:.3f}),"
+          f" {prof['launches']} CUDA kernels; launches a step {per_step}; "
+          f"phase wall {time.perf_counter() - t0:.1f}s", flush=True)
+    if not all(within(p) for p in peaks):
+        fail(f"cell on the card: step peaks {peaks} outside the limit about "
+             f"the prediction {pred}")
+    if within(ctrl):
+        fail(f"cell on the card: the plain-route control's prediction {ctrl}"
+             " passes the limit: the check would not see it")
+    out = {"counts": counts, "shapes": run["shapes"], "units": CELL_STEPS,
+           "unit": "decode step", "arguments_requested": asked,
+           "arguments_predicted": want, "arguments_allocated": args,
+           "arguments_predicted_rounded": rounded, "step_peaks": peaks,
+           "step_peak_predicted": pred, "step_peak_control": ctrl,
+           "peak_limit": PEAK_LIMIT, "step_walls_ms": walls,
+           "profile": {k: v for k, v in prof.items() if k != "top"},
+           "launches_per_step": per_step, "fill_stores": n_stores,
+           "fill_s": fill_s, "wall_s": time.perf_counter() - t0}
+    del params, caches, logits, lg
+    free_card()
+    return out
+
+
+def dryrun_phase(dev) -> dict:
+    """Phase 15: (a) the dry runs started, (c) and (d) on the card while
+    they trace, (a) read, (b) the cell against its prediction."""
+    print("--- the dry run over fake worlds; gemma3-4b decode_32k against it",
+          flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = start_dryruns(tmp)
+        long_kv4 = kv4_long_checks(dev)
+        long_decode = long_decode_checks(dev)
+        recs = finish_dryruns(procs)
+    cell = cell_on_card(dev, recs["prediction"], recs["control"])
+    wall = time.perf_counter() - t0
+    print(f"dry-run phase wall {wall:.1f} s", flush=True)
+    keep = ("memory", "cost", "collectives", "step_peak_bytes", "chips",
+            "compile_s", "ops", "wall_s")
+    return {"records": {name: {k: r[k] for k in keep if k in r}
+                        for name, r in recs.items()},
+            "kv4_long": long_kv4, "long_decode": long_decode, "cell": cell,
+            "wall_s": wall}
+
+
 # a kernel's instances in a profile: K2/K3 carry their operand loader's
 # name (split-K reduction included; K3's as the template argument
 # "ConvA<", since qdq_conv2d's kernel takes a "ConvArgs"), the kv4
@@ -3977,8 +4700,10 @@ def main() -> None:
     families = family_phase(dev)
     lm13 = prefill_train_phase(dev)
     meshed = mesh_phase(dev, lm13["train"]["smollm-135m train"]["resume"])
+    dry = dryrun_phase(dev)
     tmp_dir.cleanup()
     rows["qdq_conv2d"].extend(pipeline["io_rows"])
+    rows["kv4_attend"].extend(dry["kv4_long"]["rows"])
     # each path's own launches, per forward (diffusion), per decode step
     # (LM: prompt steps and generated steps alike) or per train step
     paths = {"ddim-cifar10 golden trace": golden, "ddim-cifar10 8x10": wall,
@@ -3990,7 +4715,8 @@ def main() -> None:
                 gateway["mixed_model"]["paths"].items()},
              **gateway["fleet"]["paths"], **families["runs"],
              **lm13["prefill"], "smollm-135m serve under the mesh":
-                 meshed["serve"]}
+                 meshed["serve"],
+             "gemma3-4b decode_32k B128 (dry-run cell)": dry["cell"]}
     by_path = {k: {name: {"launches": run["counts"][k],
                           f"per_{run['unit'].replace(' ', '_')}":
                               run["counts"][k] / run["units"]}
@@ -4003,8 +4729,11 @@ def main() -> None:
         dev, rows, {"ddim-cifar10 8x10": wall, "smollm-135m serve": lm_serve,
                     **{f"gateway mixed_model {name}": run for name, run in
                        gateway["mixed_model"]["paths"].items()},
-                    **families["runs"], **lm13["prefill"]},
+                    **families["runs"], **lm13["prefill"],
+                    "gemma3-4b decode_32k B128 (dry-run cell)": dry["cell"]},
         {**{name: r["kernel_ms"] for name, r in lm13["prefill"].items()},
+         "gemma3-4b decode_32k B128 (dry-run cell)":
+             dry["cell"]["profile"]["kernel_ms"],
          "ddim-cifar10 8x10": fwd["profile_kernel_ms"],
          "smollm-135m serve": lm["profile_kernel_ms"],
          "zamba2-2.7b serve":
@@ -4089,6 +4818,14 @@ def main() -> None:
                                "resume_bit_exact":
                                    meshed["resume_bit_exact"],
                                "wall_s": meshed["wall_s"]},
+                      "dryrun": {
+                          "records": dry["records"],
+                          "kv4_long_same_bits_2048":
+                              dry["kv4_long"]["same_bits_2048"],
+                          "long_decode": dry["long_decode"],
+                          "cell": {k: v for k, v in dry["cell"].items()
+                                   if k not in ("counts", "shapes")},
+                          "wall_s": dry["wall_s"]},
                       "lm": {"tok_s": lm_serve["tok_s"],
                              "peak_mib": lm_serve["peak_mib"],
                              "launches_per_step":

@@ -187,6 +187,26 @@ def shard_hint(x, *entries):
     return x.redistribute(mesh, want)
 
 
+def heads_view(x, n_heads: int):
+    """A DTensor ``x`` (..., n_heads * hd) made ready for its view as
+    (..., n_heads, hd): a mesh dim that cuts the last dim keeps its cut
+    only where the heads divide over it (then the cut falls on the heads),
+    else it is gathered there, GSPMD's reshard of a cut across heads
+    (DTensor has no rule for that view). Anything else as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    last, cut, pls = x.ndim - 1, 1, list(x.placements)
+    for i, pl in enumerate(pls):
+        if isinstance(pl, Shard) and pl.dim == last:
+            if n_heads % (cut * x.device_mesh.shape[i]) == 0:
+                cut *= x.device_mesh.shape[i]
+            else:
+                pls[i] = Replicate()
+    if pls == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pls)
+
+
 def like(t, ref):
     """``t``, a tensor every rank holds whole (a mask, a table, a zero
     state), as a replicated DTensor on ``ref``'s mesh where ``ref`` is a

@@ -59,8 +59,8 @@ SIGNATURES = {
     "kv4_encode_launch": ("kv4", [P, P, P, I, I, I, P]),
     "kv4_decode_launch": ("kv4", [P, P, P, LL, I, I, P]),
     "kv4_store_launch": ("kv4", [P, P, P, P, P, P, I, I, LL, I, I, I, P]),
-    "kv4_attend_launch": ("kv4", [P, P, P, P, P, P, I, I, I, I, LL, I, F, F,
-                                  I, I, I, I, P]),
+    "kv4_attend_launch": ("kv4", [P, P, P, P, P, P, P, I, I, I, I, LL, I, F,
+                                  F, I, I, I, I, P]),
 }
 
 _lock = threading.Lock()

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.common.device import no_tf32
 from repro_torch.core.qmodule import PackedW4, decode_codes, unpack_nibbles
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.msfp_quant import check_input
 from repro_torch.kernels.w4_matmul import (act_operands, gemm_plan,
                                            split_workspace, w4_matmul_2d,
@@ -133,6 +133,11 @@ def w4a4_conv2d_implicit_cuda(x: torch.Tensor, pw: PackedW4,
     kdim = kh * kw * cin
     _ws, plan_args = split_workspace(plan or gemm_plan(m, cout, kdim), m,
                                      cout, x)
+    if x.is_meta:
+        meta.record(flops=2 * m * cout * kdim, operands=(
+            x, packed, sc, *_keep, *(() if pw.signed else (zp,))),
+            results=(out,))
+        return out
     rc = build.function("w4_conv2d_launch")(
         x.data_ptr(), packed.data_ptr(), sc.data_ptr(), zp.data_ptr(),
         s_stride, b, h, w, cin, oh, ow, kh, kw, stride[0], stride[1], ph0, pw0,
@@ -151,13 +156,11 @@ def w4a4_conv2d_implicit(x: torch.Tensor, pw: PackedW4,
                          act_qp: QuantizerParams | None, *, stride,
                          padding) -> torch.Tensor:
     """x (B, H, W, cin) @ packed HWIO W4 -> (B, OH, OW, cout) NHWC."""
-    if x.device.type == "cuda":
-        return w4a4_conv2d_implicit_cuda(x.contiguous(), pw, act_qp,
-                                         stride=stride, padding=padding)
-    if x.device.type == "cpu":
+    if meta.route(x, "w4a4_conv2d") == "plain":
         return w4a4_conv2d_implicit_plain(x, pw, act_qp, stride=stride,
                                           padding=padding)
-    raise ValueError(f"w4a4_conv2d: no route for device {x.device}")
+    return w4a4_conv2d_implicit_cuda(x.contiguous(), pw, act_qp,
+                                     stride=stride, padding=padding)
 
 
 def w4a4_conv2d_im2col(x: torch.Tensor, pw: PackedW4,

@@ -46,7 +46,8 @@
 //     ring (16, 8 or 4-byte copies, as the rows align; rows padded in
 //     shared memory against bank conflicts), their scales prefetched into
 //     registers a chunk ahead. Pass 1 writes the G x valid_len logits into
-//     shared memory, thread t the logits of slot t; a block reduction gives
+//     shared memory (into a global workspace where G x slots f32 would not
+//     fit one block's; the same arithmetic), thread t the logits of slot t; a block reduction gives
 //     each head's max and sum; in pass 2 each thread owns a (head, byte
 //     column) pair and sums w * v for its two output columns over every
 //     slot. Each logit and each output is one f32 FMA chain in index
@@ -222,7 +223,12 @@ __device__ __forceinline__ float kv_value(int code, float sc) {
 // Needs hd % 16 == 0, hd <= 256, G <= MAX_G, 1 <= valid <= slots. Dynamic
 // shared memory, in this order: the two-chunk ring of staged rows
 // (row_stride apart), q in f32, the ring's row scales, the reductions'
-// scratch (8 x MAX_G), the G x valid logits.
+// scratch (8 x MAX_G), and (WS false) the G x valid logits. With WS the
+// logits live in global memory instead, at ws + (b * n_kv + head) * G *
+// slots (the wrapper's B x n_kv x G x slots f32 workspace): the cache then
+// has no bound but the card's memory. Nothing else differs, so the two
+// give the same bits; __syncthreads orders a block's global writes before
+// its reads as it does its shared ones.
 //
 // Both products sum as one FMA chain a result, in index order from zero:
 // a logit over h = 0..hd-1, an output over s = 0..valid-1. That is the
@@ -230,14 +236,14 @@ __device__ __forceinline__ float kv_value(int code, float sc) {
 // it matters: the attention output feeds the act snap of the next dense
 // site, where a value an ulp off an E2M1 midpoint moves a code (ROADMAP
 // Queue C), so another order of the same f32 sums moves whole decode steps.
-template <typename T>
+template <typename T, bool WS>
 __global__ void __launch_bounds__(ATT_THREADS)
 kv4_attend_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kc,
                   const uint8_t* __restrict__ vc,
                   const __half* __restrict__ ks, const __half* __restrict__ vs,
-                  T* __restrict__ out, int n_kv, int G, int hd,
-                  long long slots, int valid, float scale, float softcap,
-                  int cpw) {
+                  T* __restrict__ out, float* __restrict__ ws, int n_kv,
+                  int G, int hd, long long slots, int valid, float scale,
+                  float softcap, int cpw) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int hh = hd / 2, rs = row_stride(hh);
@@ -246,7 +252,8 @@ kv4_attend_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kc,
   float* qs = (float*)(smem + 2 * CHUNK * rs);       // G x hd
   float* scs = qs + G * hd;                          // 2 x CHUNK row scales
   float* red = scs + 2 * CHUNK;                      // 8 x MAX_G
-  float* lg = red + 8 * MAX_G;                       // G x valid
+  float* lg = WS ? ws + (long long)bh * G * slots    // G x valid
+                : red + 8 * MAX_G;
 
   const long long stride = (long long)n_kv * hh;   // bytes slot to slot
   const long long first = (long long)b * slots * n_kv + head;
@@ -411,23 +418,38 @@ kv4_attend_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kc,
   }
 }
 
-template <typename T>
-int launch_attend(const void* q, const void* kc, const void* vc,
-                  const void* ks, const void* vs, void* out, int batch,
-                  int n_kv, int g, int hd, long long slots, int valid,
-                  float scale, float softcap, int cpw, int smem,
-                  cudaStream_t s) {
+template <typename T, bool WS>
+int launch_attend_in(const void* q, const void* kc, const void* vc,
+                     const void* ks, const void* vs, void* out, void* ws,
+                     int batch, int n_kv, int g, int hd, long long slots,
+                     int valid, float scale, float softcap, int cpw, int smem,
+                     cudaStream_t s) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kv4_attend_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kv4_attend_kernel<T, WS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kv4_attend_kernel<T><<<batch * n_kv, ATT_THREADS, (size_t)smem, s>>>(
+  kv4_attend_kernel<T, WS><<<batch * n_kv, ATT_THREADS, (size_t)smem, s>>>(
       (const T*)q, (const uint8_t*)kc, (const uint8_t*)vc,
-      (const __half*)ks, (const __half*)vs, (T*)out, n_kv, g, hd, slots,
-      valid, scale, softcap, cpw);
+      (const __half*)ks, (const __half*)vs, (T*)out, (float*)ws, n_kv, g, hd,
+      slots, valid, scale, softcap, cpw);
   return (int)cudaGetLastError();
+}
+
+// ws null: the logits in shared memory; else in the workspace ws.
+template <typename T>
+int launch_attend(const void* q, const void* kc, const void* vc,
+                  const void* ks, const void* vs, void* out, void* ws,
+                  int batch, int n_kv, int g, int hd, long long slots,
+                  int valid, float scale, float softcap, int cpw, int smem,
+                  cudaStream_t s) {
+  return ws ? launch_attend_in<T, true>(q, kc, vc, ks, vs, out, ws, batch,
+                                        n_kv, g, hd, slots, valid, scale,
+                                        softcap, cpw, smem, s)
+            : launch_attend_in<T, false>(q, kc, vc, ks, vs, out, ws, batch,
+                                         n_kv, g, hd, slots, valid, scale,
+                                         softcap, cpw, smem, s);
 }
 
 long long grid_for(long long work) {
@@ -505,7 +527,8 @@ extern "C" int kv4_store_launch(const void* k_new, const void* v_new,
 
 extern "C" int kv4_attend_launch(const void* q, const void* k, const void* v,
                                  const void* k_scale, const void* v_scale,
-                                 void* out, int batch, int n_kv, int g, int hd,
+                                 void* out, void* ws, int batch, int n_kv,
+                                 int g, int hd,
                                  long long slots, int valid, float scale,
                                  float softcap, int cpw, int rs, int smem,
                                  int dtype, void* stream) {
@@ -517,12 +540,12 @@ extern "C" int kv4_attend_launch(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_attend<float>(q, k, v, k_scale, v_scale, out, batch, n_kv,
-                                g, hd, slots, valid, scale, softcap, cpw,
-                                smem, s);
+    return launch_attend<float>(q, k, v, k_scale, v_scale, out, ws, batch,
+                                n_kv, g, hd, slots, valid, scale, softcap,
+                                cpw, smem, s);
   if (dtype == 1)
-    return launch_attend<__nv_bfloat16>(q, k, v, k_scale, v_scale, out, batch,
-                                        n_kv, g, hd, slots, valid, scale,
-                                        softcap, cpw, smem, s);
+    return launch_attend<__nv_bfloat16>(q, k, v, k_scale, v_scale, out, ws,
+                                        batch, n_kv, g, hd, slots, valid,
+                                        scale, softcap, cpw, smem, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,7 +7,9 @@ their plain PyTorch versions, bit-identical to them and to the
 interpret-mode Pallas kernels. Each row (one token's kv-head vector) gets
 an absmax scale stored as f16 and hd/2 bytes of split-half nibbles; the
 sign is bit 3 of a code. Every entry point dispatches on the tensor's
-device: a CPU tensor takes the plain version, a CUDA tensor the kernel.
+device: a CPU tensor takes the plain version, a CUDA tensor the kernel,
+a meta tensor the kernel's checks and allocations with no launch
+(``kernels/meta.py``).
 
 The decode path (``nn/attention.py``) launches neither K4 nor K5: it runs
 ``kv4_store`` (K4's encode of the new token's k and v, written in place
@@ -32,7 +34,7 @@ import math
 from repro_torch.common.device import no_tf32
 from repro_torch.core.qmodule import (decode_codes, grid_codes, pack_nibbles,
                                       unpack_nibbles)
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.msfp_quant import DTYPE_CODES, check_input
 from repro_torch.quant.formats import FPFormat, snap_to_base_grid
 
@@ -70,6 +72,9 @@ def kv4_encode_2d_cuda(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     _check_rows(hd, "kv4_encode")
     packed = torch.empty((r, hd // 2), dtype=torch.uint8, device=t.device)
     scale = torch.empty((r,), dtype=torch.float16, device=t.device)
+    if t.is_meta:
+        meta.record(operands=(t,), results=(packed, scale))
+        return packed, scale
     rc = build.function("kv4_encode_launch")(
         t.data_ptr(), packed.data_ptr(), scale.data_ptr(), r, hd, dtype,
         torch.cuda.current_stream(t.device).cuda_stream)
@@ -83,7 +88,8 @@ kv4_encode_2d_cuda.launches = 0
 
 def kv4_decode_2d_cuda(packed: torch.Tensor, scale: torch.Tensor,
                        dtype=torch.bfloat16) -> torch.Tensor:
-    if not packed.is_cuda or packed.dtype != torch.uint8 or packed.ndim != 2:
+    if packed.device.type not in ("cuda", "meta") or \
+            packed.dtype != torch.uint8 or packed.ndim != 2:
         raise ValueError(f"kv4_decode: packed must be 2D uint8 on the card, "
                          f"got {packed.dtype} {tuple(packed.shape)} on "
                          f"{packed.device}")
@@ -99,6 +105,9 @@ def kv4_decode_2d_cuda(packed: torch.Tensor, scale: torch.Tensor,
     if not (packed.is_contiguous() and scale.is_contiguous()):
         raise ValueError("kv4_decode: packed and scale must be contiguous")
     out = torch.empty((r, 2 * half), dtype=dtype, device=packed.device)
+    if packed.is_meta:
+        meta.record(operands=(packed, scale), results=(out,))
+        return out
     rc = build.function("kv4_decode_launch")(
         packed.data_ptr(), scale.data_ptr(), out.data_ptr(), r, half,
         DTYPE_CODES[dtype], torch.cuda.current_stream(packed.device).cuda_stream)
@@ -112,22 +121,17 @@ kv4_decode_2d_cuda.launches = 0
 
 def kv4_encode_2d(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """t: (R, hd) f32/bf16 -> packed (R, hd/2) uint8, scale (R,) f16."""
-    if t.device.type == "cuda":
-        return kv4_encode_2d_cuda(t.contiguous())
-    if t.device.type == "cpu":
+    if meta.route(t, "kv4_encode") == "plain":
         return kv4_encode_2d_plain(t)
-    raise ValueError(f"kv4_encode: no route for device {t.device}")
+    return kv4_encode_2d_cuda(t.contiguous())
 
 
 def kv4_decode_2d(packed: torch.Tensor, scale: torch.Tensor,
                   dtype=torch.bfloat16) -> torch.Tensor:
     """packed: (R, hd/2) uint8, scale: (R,) f16 -> (R, hd) ``dtype``."""
-    if packed.device.type == "cuda":
-        return kv4_decode_2d_cuda(packed.contiguous(), scale.contiguous(),
-                                  dtype)
-    if packed.device.type == "cpu":
+    if meta.route(packed, "kv4_decode") == "plain":
         return kv4_decode_2d_plain(packed, scale, dtype)
-    raise ValueError(f"kv4_decode: no route for device {packed.device}")
+    return kv4_decode_2d_cuda(packed.contiguous(), scale.contiguous(), dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -144,32 +148,38 @@ def attend_row_stride(hd: int) -> int:
     return hh + (8 if hh % 16 else 16)
 
 
-def attend_smem_bytes(g: int, hd: int, slots: int) -> int:
+def attend_smem_bytes(g: int, hd: int, slots: int,
+                      logits: bool = True) -> int:
     """kv4_attend's dynamic shared memory for a cache of ``slots`` slots,
     the size its launch is given: the two-chunk ring of staged rows, q in
-    f32, the ring's row scales, the reductions' scratch and the G x slots
-    f32 logits (the layout csrc/kv4.cu:kv4_attend_kernel carves up; the
-    chunk and the most query heads are kernels/build.py's)."""
+    f32, the ring's row scales, the reductions' scratch and, with
+    ``logits``, the G x slots f32 logits (the layout csrc/kv4.cu:
+    kv4_attend_kernel carves up; the chunk and the most query heads are
+    kernels/build.py's)."""
     chunk = build.ATTEND_CHUNK
     return 2 * chunk * attend_row_stride(hd) + 4 * (
-        g * hd + 2 * chunk + 8 * build.ATTEND_MAX_G + g * slots)
+        g * hd + 2 * chunk + 8 * build.ATTEND_MAX_G + (g * slots if logits
+                                                       else 0))
+
+
+def attend_logits_shared(g: int, hd: int, slots: int) -> bool:
+    """Whether kv4_attend keeps the G x slots logits in shared memory
+    (they fit one block's ``build.BLOCK_SMEM_LIMIT``) or in a global
+    workspace of B x K x G x slots f32. The two give the same bits."""
+    return attend_smem_bytes(g, hd, slots) <= build.BLOCK_SMEM_LIMIT
 
 
 def check_attend_shape(g: int, hd: int, slots: int) -> None:
-    """Raise ValueError naming the limit kv4_attend's kernel would break."""
+    """Raise ValueError naming the limit kv4_attend's kernel would break
+    (a long cache breaks none: its logits go to the workspace)."""
     if hd % 16 or not 16 <= hd <= 256:
         raise ValueError(f"kv4_attend: head dim {hd} must be a multiple of "
                          "16 in [16, 256]")
     if not 1 <= g <= build.ATTEND_MAX_G:
         raise ValueError(f"kv4_attend: {g} query heads per kv-head, the "
                          f"kernel takes 1 to {build.ATTEND_MAX_G}")
-    need = attend_smem_bytes(g, hd, slots)
-    if need > build.BLOCK_SMEM_LIMIT:
-        raise ValueError(
-            f"kv4_attend: {g} query heads x {slots} cache slots need {need} "
-            f"bytes of shared memory (the G x S f32 logits plus the staging "
-            f"ring), above the {build.BLOCK_SMEM_LIMIT} one block may hold; "
-            "the kernel has no split over the cache yet")
+    if slots < 1:
+        raise ValueError(f"kv4_attend: a cache of {slots} slots")
 
 
 def attend(q: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
@@ -313,6 +323,10 @@ def kv4_store_cuda(k_new, v_new, k, v, k_scale, v_scale, pos: int) -> None:
                          "kv4_store")
     if not 0 <= pos < slots:
         raise ValueError(f"kv4_store: slot {pos} outside [0, {slots})")
+    if k_new.is_meta:
+        meta.record(operands=(k_new, v_new), results=(
+            k[:, pos], v[:, pos], k_scale[:, pos], v_scale[:, pos]))
+        return
     rc = build.function("kv4_store_launch")(
         k_new.data_ptr(), v_new.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), b, n_kv, slots, pos, hd,
@@ -325,7 +339,11 @@ kv4_store_cuda.launches = 0
 
 
 def kv4_attend_cuda(q, k, v, k_scale, v_scale, valid_len: int, scale: float,
-                    softcap: float | None = None) -> torch.Tensor:
+                    softcap: float | None = None, *,
+                    workspace: bool | None = None) -> torch.Tensor:
+    """The kernel. ``workspace``: True puts the logits in the global
+    workspace, False in shared memory (raises where they do not fit),
+    None picks by ``attend_logits_shared``."""
     dtype = check_input(q, "kv4_attend")
     if q.dim() != 4:
         raise ValueError(f"kv4_attend: q must be (B, K, G, hd), got "
@@ -343,12 +361,28 @@ def kv4_attend_cuda(q, k, v, k_scale, v_scale, valid_len: int, scale: float,
     cpw = next((w for w in (16, 8, 4) if align % w == 0), None)
     if cpw is None:
         raise ValueError("kv4_attend: cache rows must start 4-byte aligned")
+    shared = attend_logits_shared(g, hd, slots)
+    if workspace is None:
+        workspace = not shared
+    elif not workspace and not shared:
+        raise ValueError(
+            f"kv4_attend: {g} query heads x {slots} cache slots of f32 "
+            f"logits need {attend_smem_bytes(g, hd, slots)} bytes of shared "
+            f"memory, above the {build.BLOCK_SMEM_LIMIT} one block may hold")
     out = torch.empty_like(q)
+    ws = (torch.empty(b * n_kv * g * slots, dtype=torch.float32,
+                      device=q.device) if workspace else None)
+    if q.is_meta:
+        n = b * n_kv * g * slots
+        meta.record(flops=4 * n * hd, operands=(q, k, v, k_scale, v_scale),
+                    results=(out,), transcendentals=n * (2 if softcap else 1))
+        return out
     rc = build.function("kv4_attend_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), out.data_ptr(), b, n_kv, g, hd, slots,
-        int(valid_len), float(scale), float(softcap or 0.0), cpw,
-        attend_row_stride(hd), attend_smem_bytes(g, hd, slots), dtype,
+        v_scale.data_ptr(), out.data_ptr(), None if ws is None else
+        ws.data_ptr(), b, n_kv, g, hd, slots, int(valid_len), float(scale),
+        float(softcap or 0.0), cpw, attend_row_stride(hd),
+        attend_smem_bytes(g, hd, slots, logits=not workspace), dtype,
         _stream(q))
     build.check(rc, "kv4_attend")
     kv4_attend_cuda.launches += 1
@@ -360,22 +394,18 @@ kv4_attend_cuda.launches = 0
 
 def kv4_store(k_new, v_new, k, v, k_scale, v_scale, pos: int) -> None:
     """Encode k_new, v_new (B, K, hd) into cache slot ``pos``, in place."""
-    if k_new.device.type == "cuda":
-        return kv4_store_cuda(k_new.contiguous(), v_new.contiguous(), k, v,
-                              k_scale, v_scale, pos)
-    if k_new.device.type == "cpu":
+    if meta.route(k_new, "kv4_store") == "plain":
         return kv4_store_plain(k_new, v_new, k, v, k_scale, v_scale, pos)
-    raise ValueError(f"kv4_store: no route for device {k_new.device}")
+    return kv4_store_cuda(k_new.contiguous(), v_new.contiguous(), k, v,
+                          k_scale, v_scale, pos)
 
 
 def kv4_attend(q, k, v, k_scale, v_scale, valid_len: int, scale: float,
                softcap: float | None = None) -> torch.Tensor:
     """q (B, K, G, hd) attends over the first ``valid_len`` slots of the
     packed cache -> o (B, K, G, hd) in q.dtype."""
-    if q.device.type == "cuda":
-        return kv4_attend_cuda(q.contiguous(), k, v, k_scale, v_scale,
-                               valid_len, scale, softcap)
-    if q.device.type == "cpu":
+    if meta.route(q, "kv4_attend") == "plain":
         return kv4_attend_plain(q, k, v, k_scale, v_scale, valid_len, scale,
                                 softcap)
-    raise ValueError(f"kv4_attend: no route for device {q.device}")
+    return kv4_attend_cuda(q.contiguous(), k, v, k_scale, v_scale, valid_len,
+                           scale, softcap)

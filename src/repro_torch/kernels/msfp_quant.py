@@ -2,8 +2,9 @@
 sites' conv with K1 fused into it.
 
 CUDA kernels in ``csrc/msfp_quant.cu``, each with its plain PyTorch
-version, and dispatchers that send a CPU tensor to the plain version and a
-CUDA tensor to the kernel:
+version, and dispatchers that send a CPU tensor to the plain version, a
+CUDA tensor to the kernel and a meta tensor to the kernel's checks and
+allocations with no launch (``kernels/meta.py``):
 
 * ``msfp_qdq_2d``: K1 (replaces the TPU kernel
   ``src/repro/kernels/msfp_quant.py:msfp_qdq_2d``), bit-identical to its
@@ -25,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.quant.fakequant import (KIND_FP_SIGNED, KIND_INT_AFFINE,
                                          QuantizerParams, fp_qdq)
 from repro_torch.quant.formats import FPFormat
@@ -52,7 +53,9 @@ def scalar_operand(v: torch.Tensor, like: torch.Tensor, what: str
 
 
 def check_input(x: torch.Tensor, what: str) -> int:
-    if not x.is_cuda:
+    """A kernel input's dtype code; a meta tensor passes where a CUDA one
+    would (the meta route runs the kernel wrapper's checks)."""
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"{what}: the CUDA kernel needs a CUDA tensor")
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"{what}: dtype {x.dtype} not in {list(DTYPE_CODES)}")
@@ -68,6 +71,9 @@ def msfp_qdq_2d_cuda(x: torch.Tensor, maxval, zero_point, *, exp_bits: int,
     mv = scalar_operand(maxval, x, "maxval")
     zp = scalar_operand(zero_point, x, "zero_point")
     out = torch.empty_like(x)
+    if x.is_meta:
+        meta.record(operands=(x,), results=(out,))
+        return out
     rc = build.function("msfp_qdq_launch")(
         x.data_ptr(), out.data_ptr(), x.numel(), mv.data_ptr(), zp.data_ptr(),
         exp_bits, man_bits, int(signed), int(folded), dtype,
@@ -88,11 +94,9 @@ def msfp_qdq_2d(x: torch.Tensor, maxval, zero_point, *, exp_bits: int,
     (``fakequant.FORMS``), for the fine-tune's STE."""
     kw = dict(exp_bits=exp_bits, man_bits=man_bits, signed=signed,
               folded=folded)
-    if x.device.type == "cuda":
-        return msfp_qdq_2d_cuda(x.contiguous(), maxval, zero_point, **kw)
-    if x.device.type == "cpu":
+    if meta.route(x, "msfp_qdq") == "plain":
         return msfp_qdq_2d_plain(x, maxval, zero_point, **kw)
-    raise ValueError(f"msfp_qdq: no route for device {x.device}")
+    return msfp_qdq_2d_cuda(x.contiguous(), maxval, zero_point, **kw)
 
 
 def msfp_qdq(x: torch.Tensor, qp: QuantizerParams, folded: bool = False
@@ -188,7 +192,8 @@ def qdq_conv2d_cuda(x: torch.Tensor, w: torch.Tensor,
                     rows: int | None = None) -> torch.Tensor:
     """The kernel; ``rows`` forces the band height (output rows a CTA)."""
     from repro_torch.kernels.conv import conv_geometry
-    if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
+    if x.device.type not in ("cuda", "meta") or x.dtype != torch.float32 \
+            or not x.is_contiguous():
         raise ValueError("qdq_conv2d: x must be a contiguous f32 CUDA tensor")
     if x.ndim != 4 or w.ndim != 4:
         raise ValueError(f"qdq_conv2d: x {tuple(x.shape)} must be NHWC and "
@@ -229,6 +234,10 @@ def qdq_conv2d_cuda(x: torch.Tensor, w: torch.Tensor,
             f"channels needs {lay.smem} bytes of shared memory, above the "
             f"{build.BLOCK_SMEM_LIMIT} one block may hold")
     out = torch.empty((b, oh, ow, cout), dtype=torch.float32, device=x.device)
+    if x.is_meta:
+        meta.record(flops=2 * out.numel() * k * k * cin,
+                    operands=(x, w, bias), results=(out,))
+        return out
     mv, zp, eb, mb, sgn, has_act = act
     rc = build.function("qdq_conv2d_launch")(
         x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
@@ -291,7 +300,11 @@ def qdq_conv2d(x: torch.Tensor, w: torch.Tensor,
     quantizer or None, bias (cout,) or None. On the card a call that needs
     gradients runs ``QdqConv2dFn``; on the CPU the plain version is
     differentiable as it is."""
-    if x.device.type == "cuda":
+    r = meta.route(x, "qdq_conv2d")
+    if r == "meta":
+        return qdq_conv2d_cuda(x.contiguous(), w.contiguous(), act_qp, bias,
+                               padding=padding)
+    if r == "cuda":
         x, w = x.contiguous(), w.contiguous()
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad for t in (x, w, bias)):
@@ -301,6 +314,4 @@ def qdq_conv2d(x: torch.Tensor, w: torch.Tensor,
                     "the act with quant.fakequant.ste_qdq first)")
             return QdqConv2dFn.apply(x, w, bias, padding)
         return qdq_conv2d_cuda(x, w, act_qp, bias, padding=padding)
-    if x.device.type == "cpu":
-        return qdq_conv2d_plain(x, w, act_qp, bias, padding=padding)
-    raise ValueError(f"qdq_conv2d: no route for device {x.device}")
+    return qdq_conv2d_plain(x, w, act_qp, bias, padding=padding)

@@ -4,8 +4,12 @@ Every op dispatches on its input's device: a CUDA tensor launches the
 hand-written kernel (K1 ``msfp_quant`` and the io sites' ``qdq_conv2d``
 beside it, K2 ``w4_matmul``, K3 ``conv``, K4/K5 ``kv4`` and the decode
 path's ``kv4_store``/``kv4_attend``) or raises, a CPU tensor takes the
-kernel's plain PyTorch version. There is no fallback from a failed kernel
-to the plain version.
+kernel's plain PyTorch version, a meta tensor the kernel's checks and
+allocations with no launch (``kernels/meta.py``, the dry run's route).
+There is no fallback from a failed kernel to the plain version.
+
+Every op here takes plain tensors: a model on a mesh calls the kernels
+through ``nn/partition.py``, which hands each rank's local shards here.
 
 The branches that no kernel covers keep the reference's rules (INT-affine
 or per-channel act params, stacked packs -> ``kernels/ref.py``; the dense
@@ -13,7 +17,8 @@ f32 matmul of bf16-fallback weights; the dense conv that ``qdq_conv2d``
 does not cover) and, like every other decision here, go through
 ``_dispatch``, which counts it in ``ROUTES`` under ``(op, route)``. Route
 labels: ``cuda`` / ``cuda:implicit`` / ``cuda:im2col`` (a kernel),
-``plain`` / ``plain:*`` (a kernel's plain version on the CPU), ``ref`` (an
+``plain`` / ``plain:*`` (a kernel's plain version on the CPU), ``meta`` /
+``meta:*`` (a kernel's meta route), ``ref`` (an
 off-kernel oracle), ``torch_f32`` (a dense f32 product the reference
 leaves to XLA: ``dense_matmul``, and ``dense_conv2d`` outside
 ``qdq_conv2d``'s cover) and ``torch`` (the tied LM head's readout
@@ -34,6 +39,7 @@ import torch
 
 from repro_torch.common.device import no_tf32
 from repro_torch.core.qmodule import PackedW4
+from repro_torch.kernels import meta
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.conv import (conv2d_nhwc, w4a4_conv2d_im2col,
                                       w4a4_conv2d_implicit)
@@ -68,7 +74,7 @@ def reset_routes() -> None:
 
 
 def _kernel_label(x: torch.Tensor) -> str:
-    return "cuda" if x.device.type == "cuda" else "plain"
+    return meta.route(x, "ops")
 
 
 def msfp_quantize(x: torch.Tensor, qp: QuantizerParams,

@@ -19,7 +19,7 @@ import math
 import torch
 
 from repro_torch.core.qmodule import decode_codes, unpack_nibbles
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.msfp_quant import check_input, scalar_operand
 from repro_torch.quant.fakequant import fp_qdq
 from repro_torch.quant.formats import FPFormat
@@ -166,6 +166,11 @@ def w4_matmul_2d_cuda(x, packed, scale, zero_point=0.0, act=None, *,
     act_args, _keep = act_operands(act, x)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     _ws, plan_args = split_workspace(plan or gemm_plan(m, n, k), m, n, x)
+    if x.is_meta:
+        meta.record(flops=2 * m * n * k, operands=(
+            x, packed, sc, *_keep, *(() if signed else (zp,))),
+            results=(out,))
+        return out
     rc = build.function("w4_matmul_launch")(
         x.data_ptr(), packed.data_ptr(), sc.data_ptr(), zp.data_ptr(), stride,
         m, n, k, exp_bits, man_bits, int(signed), *act_args, dtype, *plan_args,
@@ -187,12 +192,10 @@ def w4_matmul_2d(x, packed, scale, zero_point=0.0, act=None, *,
     (``w4_matmul_2d``) or (maxval, zp, exp_bits, man_bits, signed) for the
     fused snap (``w4a4_matmul_2d``)."""
     kw = dict(exp_bits=exp_bits, man_bits=man_bits, signed=signed)
-    if x.device.type == "cuda":
-        return w4_matmul_2d_cuda(x.contiguous(), packed, scale, zero_point,
-                                 act, **kw)
-    if x.device.type == "cpu":
+    if meta.route(x, "w4_matmul") == "plain":
         return w4_matmul_2d_plain(x, packed, scale, zero_point, act, **kw)
-    raise ValueError(f"w4_matmul: no route for device {x.device}")
+    return w4_matmul_2d_cuda(x.contiguous(), packed, scale, zero_point, act,
+                             **kw)
 
 
 def w4a4_matmul_2d(x, packed, scale, zero_point, act_maxval, act_zero_point,

@@ -22,9 +22,19 @@ raises instead, so no flag is quietly dropped).
 
 ``mesh_scope(mesh)`` installs ``mesh`` as the ambient mesh that
 ``common/sharding.py:shard_hint`` and ``moe_apply_ep`` read.
+
+``fake_world(n)`` makes the default group a ``"fake"`` group of ``n``
+ranks (torch's ``FakeProcessGroup`` over a ``FakeStore``) with this
+process as rank 0: its collectives return at once and move nothing, so
+``make_production_mesh`` builds the (16, 16) and (2, 16, 16) meshes in
+one process, over which the dry run traces rank 0's shards on the meta
+device (``launch/dryrun.py``). The dry run owns its process's default
+group, as the reference's owns jax's initialization: run it in a process
+of its own.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 
@@ -49,6 +59,26 @@ def init_world(device: torch.device) -> bool:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                 world_size=1)
     return True
+
+
+@contextlib.contextmanager
+def fake_world(size: int):
+    """The default process group as a fake group of ``size`` ranks, this
+    process rank 0, while the context is open; refuses a group that
+    exists already."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a default process group exists "
+                           f"already ({dist.get_backend()}, "
+                           f"{dist.get_world_size()} ranks); the dry run "
+                           "needs a process of its own")
+    # registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _device_type() -> str:

@@ -1,7 +1,11 @@
 """The LM steps; port of ``repro.launch.steps``: the train step (with
-gradient accumulation), the prefill and decode functions, and the W4
-packing of an LM's weights. The abstract (dry-run) trees and input specs
-are ROADMAP Queue A item 13d.
+gradient accumulation), the prefill and decode functions, the W4 packing
+of an LM's weights, and the dry run's abstract trees and input specs.
+
+``abstract_*`` build the trees on the ``meta`` device: every leaf has
+its shape and dtype and no storage, and nothing is drawn, so the 1T
+parameters of kimi-k2 take no byte of memory (the reference's
+``jax.eval_shape`` trees of ShapeDtypeStructs; ``launch/dryrun.py``).
 
 The train step takes plain tensors or DTensors placed by
 ``launch/sharding.py:param_shardings`` (inside ``launch/mesh.py:
@@ -22,10 +26,12 @@ from repro_torch.common.device import no_tf32
 from repro_torch.common.sharding import to_full
 from repro_torch.common.tree import (flatten_paths, tree_leaves, tree_map,
                                      unflatten_paths)
+from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.core.qmodule import (PackedW4, encode_codes,
                                       pack_nibbles, pack_weight)
-from repro_torch.models.lm import LMConfig, decode_step, forward, loss_fn
-from repro_torch.optim.adam import AdamConfig, adam_update
+from repro_torch.models.lm import (LMConfig, cache_specs, decode_step,
+                                   forward, init_caches, lm_init, loss_fn)
+from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
 from repro_torch.quant.fakequant import KIND_FP_SIGNED, QuantizerParams
 from repro_torch.quant.search import search_weight_params
 
@@ -205,3 +211,72 @@ def quantize_lm_for_serving(params, bits: int = 4, *, searched: bool = True,
             out[path] = _pack_stacked(leaf, QuantizerParams(
                 KIND_FP_SIGNED, 2, 1, bits, mv.to(torch.float32)))
     return unflatten_paths(out)
+
+
+# ---------------------------------------------------------------------------
+# abstract trees (meta tensors) and input specs
+# ---------------------------------------------------------------------------
+
+
+def abstract_params(cfg: LMConfig):
+    return lm_init(None, cfg, device="meta")
+
+
+def abstract_opt(aparams, acfg: AdamConfig):
+    return adam_init(aparams, acfg)
+
+
+def abstract_caches(cfg: LMConfig, batch: int, s_max: int):
+    return init_caches(cfg, batch, s_max, device="meta")
+
+
+def _sds(shape, dtype) -> torch.Tensor:
+    """A meta tensor: the ShapeDtypeStruct of the reference."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def quantize_abstract(aparams):
+    """The quantizable weights replaced by abstract PackedW4 (the W4
+    serving form): (..., N/2) uint8 codes, f32 scale and zero-point of
+    shape () or, for a stacked (G, ..., N) weight, (G, 1, ..., 1)."""
+    out = {}
+    for path, leaf in flatten_paths(aparams).items():
+        if (QUANT_WEIGHT_RE.search(path) and leaf.ndim >= 2
+                and leaf.shape[-1] % 2 == 0):
+            lead = leaf.shape[:-2]
+            scale_shape = (*lead, 1, 1) if lead else ()
+            out[path] = PackedW4(
+                packed=_sds((*leaf.shape[:-1], leaf.shape[-1] // 2),
+                            torch.uint8),
+                scale=_sds(scale_shape, torch.float32),
+                zero_point=_sds(scale_shape, torch.float32),
+                exp_bits=2, man_bits=1, signed=True, shape=tuple(leaf.shape))
+        else:
+            out[path] = leaf
+    return unflatten_paths(out)
+
+
+def input_specs(cfg: LMConfig, shape: ShapeSpec) -> dict:
+    """Abstract inputs of one dry-run cell: the batch of a train or
+    prefill step (with the vlm's image embeddings), or a decode step's
+    caches, token and position (an int32 scalar, as the reference's; the
+    port's decode takes it as a Python int, ``launch/dryrun.py`` passes
+    the last slot)."""
+    gb, s = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": _sds((gb, s), torch.int32)}
+        if cfg.family == "vlm":
+            batch["extra"] = _sds((gb, cfg.n_img_tokens, cfg.d_vision),
+                                  torch.bfloat16)
+        return {"batch": batch}
+
+    def make(spec):
+        if isinstance(spec, dict) and "shape" in spec:
+            return _sds(spec["shape"], spec["dtype"])
+        if isinstance(spec, dict):
+            return {k: make(v) for k, v in spec.items()}
+        return [make(v) for v in spec]
+
+    return {"caches": make(cache_specs(cfg, gb, s)),
+            "token": _sds((gb, 1), torch.int32),
+            "pos": _sds((), torch.int32)}

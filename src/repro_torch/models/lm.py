@@ -42,17 +42,18 @@ import math
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.common.sharding import (DP, MODEL, like,
+from repro_torch.common.sharding import (DP, MODEL, like, over_batch,
                                          recompute_contexts, shard_hint)
 from repro_torch.core.qmodule import PackedW4
 from repro_torch.kernels import ops
 from repro_torch.nn.attention import (AttnConfig, attn_apply, attn_decode,
                                       attn_init, kv_cache_spec)
 from repro_torch.nn.embeddings import rope_frequencies, timestep_embedding
-from repro_torch.nn.layers import (dense_apply, dense_init, rmsnorm_apply,
-                                   rmsnorm_init)
+from repro_torch.nn.layers import (dense_apply, dense_init, randn,
+                                   rmsnorm_apply, rmsnorm_init)
 from repro_torch.nn.mlp import mlp_apply, mlp_init
 from repro_torch.nn.moe import MoEConfig, moe_apply, moe_apply_ep, moe_init
 from repro_torch.nn.ssm import (SSMConfig, ssm_apply, ssm_decode, ssm_init,
@@ -236,16 +237,19 @@ def _stacked(make, n: int) -> Any:
     return out
 
 
-def lm_init(gen: torch.Generator, cfg: LMConfig, device="cpu") -> dict:
+def lm_init(gen: torch.Generator | None, cfg: LMConfig,
+            device="cpu") -> dict:
     """Random parameters from ``gen`` (drawn on ``gen``'s device, then
     moved to ``device``) in the reference's tree layout and leaf order
     (the numbers differ from ``jax.random``'s; tests carry the port's
     trees over to the reference). A generator on the card draws a
-    full-width model there in a fraction of the host's time."""
+    full-width model there in a fraction of the host's time. On the
+    ``meta`` device nothing is drawn and ``gen`` may be None
+    (``nn/layers.py:randn``): the abstract tree of the dry run."""
     kw = dict(device=device, dtype=cfg.dtype)
     p: dict[str, Any] = {
-        "embed": (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
-                              device=gen.device) * 0.02).to(**kw),
+        "embed": (randn(gen, (cfg.vocab, cfg.d_model), device)
+                  * 0.02).to(**kw),
         "final_norm": rmsnorm_init(cfg.d_model, **kw)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab, **kw)
@@ -361,11 +365,22 @@ def _rope_tables(cfg: LMConfig, s: int, device) -> dict:
     return tables or {SHARED_THETA: (None, None)}
 
 
+def _lookup(table, tokens):
+    """``table[tokens]``. On DTensors each rank gathers its batch shard's
+    rows from the table taken whole (``over_batch``): torch 2.11 (the
+    card's) has no working rule for the backward of a gather from a table
+    cut over its rows (its ``index_put`` strategy builds an unnormalized
+    ``Shard(-1)``)."""
+    if isinstance(tokens, DTensor):
+        return over_batch(lambda t, w: w[t], tokens, (table,))
+    return table[tokens]
+
+
 def _embed_tokens(p: dict, cfg: LMConfig, tokens: torch.Tensor, extra):
     """The token embeddings (scaled by sqrt(d_model) for gemma), the vlm's
     projected patch embeddings over the first positions, and the
     sinusoidal positions where the config has them."""
-    h = p["embed"][tokens].to(cfg.dtype)
+    h = _lookup(p["embed"], tokens).to(cfg.dtype)
     if cfg.scale_embed:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
                              device=h.device).to(cfg.dtype)
@@ -539,7 +554,8 @@ def decode_step(p: dict, cfg: LMConfig, caches: dict, token: torch.Tensor,
                              device=dev).to(cfg.dtype)
     if cfg.pos == "sinusoidal":
         t = torch.tensor([float(pos)], device=dev)
-        h = h + timestep_embedding(t, cfg.d_model)[None].to(cfg.dtype)
+        h = h + like(timestep_embedding(t, cfg.d_model)[None].to(cfg.dtype),
+                     h)
     h = shard_hint(h, DP, None, None)
 
     rots: dict[float, tuple] = {}
@@ -550,7 +566,8 @@ def decode_step(p: dict, cfg: LMConfig, caches: dict, token: torch.Tensor,
         if theta not in rots:
             ar = torch.arange(0, cfg.hd, 2, dtype=torch.float32, device=dev)
             ang = float(pos) * (1.0 / (theta ** (ar / cfg.hd)))
-            rots[theta] = (torch.cos(ang)[None], torch.sin(ang)[None])
+            rots[theta] = (like(torch.cos(ang)[None], h),
+                           like(torch.sin(ang)[None], h))
         return rots[theta]
 
     for i in range(cfg.first_k_dense):

@@ -33,9 +33,10 @@ import dataclasses
 import torch
 
 from repro_torch.common.device import no_tf32
-from repro_torch.common.sharding import like
-from repro_torch.kernels import kv4, ops
+from repro_torch.common.sharding import heads_view, like
+from repro_torch.kernels import kv4
 from repro_torch.nn.embeddings import apply_rope
+from repro_torch.nn import partition
 from repro_torch.nn.layers import dense_apply, dense_init
 
 KV_DTYPES = ("bf16", "fp8", "fp4")
@@ -75,9 +76,9 @@ def _qkv(p, x, cfg: AttnConfig, cos, sin, *, ctx=None, site=None):
     q = dense_apply(p["wq"], x, ctx=ctx, site=f"{site}/wq")
     k = dense_apply(p["wk"], x, ctx=ctx, site=f"{site}/wk")
     v = dense_apply(p["wv"], x, ctx=ctx, site=f"{site}/wv")
-    q = q.reshape(b, s, cfg.n_kv * g, cfg.head_dim)
-    k = k.reshape(b, s, cfg.n_kv, cfg.head_dim)
-    v = v.reshape(b, s, cfg.n_kv, cfg.head_dim)
+    q = heads_view(q, cfg.n_heads).reshape(b, s, cfg.n_kv * g, cfg.head_dim)
+    k = heads_view(k, cfg.n_kv).reshape(b, s, cfg.n_kv, cfg.head_dim)
+    v = heads_view(v, cfg.n_kv).reshape(b, s, cfg.n_kv, cfg.head_dim)
     if cfg.use_rope and cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -185,8 +186,9 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, store_pos: int,
     scale = cfg.head_dim ** -0.5
     if kv_dtype == "fp4":
         fp4 = (cache["k"], cache["v"], cache["k_scale"], cache["v_scale"])
-        ops.kv4_store(k[:, 0], v[:, 0], *fp4, store_pos)
-        o = ops.kv4_attend(q[:, 0], *fp4, valid_len, scale, cfg.softcap)
+        partition.kv4_store(k[:, 0], v[:, 0], *fp4, store_pos)
+        o = partition.kv4_attend(q[:, 0], *fp4, valid_len, scale,
+                                 cfg.softcap)
     else:
         _kv_store(cache, k, v, store_pos, kv_dtype)
         keys, vals = cache["k"].to(x.dtype), cache["v"].to(x.dtype)

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.qmodule import PackedW4
 from repro_torch.kernels import ops
+from repro_torch.nn import partition
 from repro_torch.quant.calibrate import QuantContext
 
 
@@ -22,11 +23,21 @@ def _maybe_quant_act(ctx: QuantContext | None, site: str | None, x):
     return ctx.act(site, x)
 
 
+def randn(gen: torch.Generator | None, shape: tuple, device) -> torch.Tensor:
+    """f32 standard-normal draws of ``shape`` from ``gen``, on ``gen``'s
+    device; for a ``device`` of ``meta`` an empty meta tensor, the
+    generator untouched (``gen`` may be None): the dry run's abstract
+    parameters, built with no draw and no storage."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
                bias: bool = False, scale: float | None = None,
                device="cpu", dtype=torch.float32) -> dict:
     scale = scale if scale is not None else d_in ** -0.5
-    w = torch.randn((d_in, d_out), generator=gen, device=gen.device) * scale
+    w = randn(gen, (d_in, d_out), device) * scale
     p = {"w": w.to(device=device, dtype=dtype)}
     if bias:
         p["b"] = torch.zeros((d_out,), device=device, dtype=dtype)
@@ -42,10 +53,10 @@ def dense_apply(p: dict, x: torch.Tensor, *, ctx: QuantContext | None = None,
     if act_qp is None and ctx is not None:
         act_qp = ctx.serving_qp(site)
     if isinstance(w, PackedW4):
-        y = ops.w4a4_matmul(x, w, act_qp)
+        y = partition.w4a4_matmul(x, w, act_qp)
     else:
         if act_qp is not None:
-            x = ops.msfp_quantize(x, act_qp)
+            x = partition.msfp_quantize(x, act_qp)
         y = ops.dense_matmul(x, w)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
@@ -132,7 +143,7 @@ def layernorm_apply(p: dict, x: torch.Tensor, *, eps: float = 1e-5
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int, device="cpu",
                dtype=torch.float32) -> dict:
-    w = torch.randn((vocab, dim), generator=gen, device=gen.device) * 0.02
+    w = randn(gen, (vocab, dim), device) * 0.02
     return {"table": w.to(device=device, dtype=dtype)}
 
 

@@ -41,7 +41,8 @@ from repro_torch.common.sharding import (P, ambient_mesh, axis_sizes,
 from repro_torch.common.tree import flatten_paths, tree_map, unflatten_paths
 from repro_torch.core.qmodule import PackedW4
 from repro_torch.kernels import ops
-from repro_torch.nn.layers import ACTIVATIONS, dense_apply, dense_init
+from repro_torch.nn.layers import (ACTIVATIONS, dense_apply, dense_init,
+                                   randn)
 from repro_torch.nn.mlp import glu_mlp_apply, glu_mlp_init
 
 
@@ -64,14 +65,14 @@ def moe_init(gen: torch.Generator, cfg: MoEConfig, device="cpu",
     down stacks, and the shared expert's GLU MLP."""
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
 
-    def randn(*shape, scale):
-        w = torch.randn(shape, generator=gen, device=gen.device) * scale
+    def draw(*shape, scale):
+        w = randn(gen, shape, device) * scale
         return w.to(device=device, dtype=dtype)
 
     p = {"router": dense_init(gen, d, e, device=device, dtype=torch.float32),
-         "w_gate": randn(e, d, f, scale=d ** -0.5),
-         "w_up": randn(e, d, f, scale=d ** -0.5),
-         "w_down": randn(e, f, d, scale=f ** -0.5)}
+         "w_gate": draw(e, d, f, scale=d ** -0.5),
+         "w_up": draw(e, d, f, scale=d ** -0.5),
+         "w_down": draw(e, f, d, scale=f ** -0.5)}
     if cfg.n_shared:
         p["shared"] = glu_mlp_init(gen, d, f * cfg.n_shared, device, dtype)
     return p
@@ -185,20 +186,40 @@ def _combine_local(out_e: torch.Tensor, meta, t: int, d: int, dtype):
     return yt.to(dtype)
 
 
+_PACK_FIELDS = ("packed", "scale", "zero_point")
+
+
+def _tensors_of(w) -> tuple:
+    """A weight's tensors: a PackedW4's three, a dense weight itself."""
+    if isinstance(w, PackedW4):
+        return tuple(getattr(w, f) for f in _PACK_FIELDS)
+    return (w,)
+
+
+def _rebuild(w, it):
+    """``w`` with its tensors taken in turn from the iterator ``it``."""
+    if isinstance(w, PackedW4):
+        return dataclasses.replace(w, **{f: next(it) for f in _PACK_FIELDS})
+    return next(it)
+
+
 def _on_replicas(fn, p: dict, x, *args, **kw):
     """``fn(p, x, ...)`` with DTensor inputs gathered whole onto every
     rank and its output replicated: the global dispatch's argsort and
     scatter over a sharded token set have no DTensor sharding rule, and
     under GSPMD they meet the same gathers (the reference's baseline,
-    which ``moe_apply_ep`` replaces)."""
+    which ``moe_apply_ep`` replaces). A PackedW4's tensors go in one by
+    one."""
     mesh = x.device_mesh
-    paths, leaves = zip(*flatten_paths(p).items())
+    flat = flatten_paths(p)
+    leaves = [t for w in flat.values() for t in _tensors_of(w)]
     # lists: local_map reads a tuple of out_placements as one an output
     rep = [Replicate()] * mesh.ndim
 
     def local(x_l, *leaves_l):
-        return fn(unflatten_paths(dict(zip(paths, leaves_l))), x_l, *args,
-                  **kw)
+        it = iter(leaves_l)
+        return fn(unflatten_paths({k: _rebuild(w, it) for k, w in
+                                   flat.items()}), x_l, *args, **kw)
 
     return local_map(local, out_placements=rep, in_placements=tuple(
         rep if isinstance(a, DTensor) else None for a in (x, *leaves)),
@@ -269,9 +290,14 @@ def moe_apply_ep(p: dict, x: torch.Tensor, cfg: MoEConfig, *,
     combine. Collective volume is 2x the dispatched activations.
 
     Tokens shard over every mesh axis for the dispatch, the model axis
-    included. Falls back to ``moe_apply`` where the reference does: no
-    ambient mesh or none with ``model_axis``, experts that the axis does
-    not divide, tokens that the shards do not divide. Plain-tensor inputs
+    included: a (B, S, d) input whose batch the DP axes and whose
+    sequence the model axis divide is cut so, which is the same token set
+    a rank that cuts the flattened tokens over every axis holds (and
+    needs no view of a dim cut over three mesh axes, which DTensor
+    shapes wrongly); any other input is flattened first. Falls back to
+    ``moe_apply`` where the reference does: no ambient mesh or none with
+    ``model_axis``, experts that the axis does not divide, tokens that
+    the shards do not divide. Plain-tensor inputs
     are taken as replicated (a plain ``x`` gets its output gathered
     whole); a DTensor's output stays a DTensor sharded over the
     tokens."""
@@ -286,12 +312,16 @@ def moe_apply_ep(p: dict, x: torch.Tensor, cfg: MoEConfig, *,
 
     lead = x.shape[:-1]
     d = x.shape[-1]
-    xt = x.reshape(-1, d)
-    t = xt.shape[0]
+    t = math.prod(lead)
     tok_axes = (*dp_axes, model_axis)
     n_shards = math.prod(sizes[a] for a in tok_axes)
     if t % n_shards != 0:
         return moe_apply(p, x, cfg, ctx=ctx, site=site)
+    dp_n = n_shards // mp
+    if x.ndim == 3 and x.shape[0] % dp_n == 0 and x.shape[1] % mp == 0:
+        xt, tok_spec = x, P(dp_axes, model_axis, None)
+    else:
+        xt, tok_spec = x.reshape(-1, d), P(tok_axes, None)
     rep = [Replicate()] * mesh.ndim
     plain = not isinstance(xt, DTensor)
     if plain:
@@ -302,7 +332,13 @@ def moe_apply_ep(p: dict, x: torch.Tensor, cfg: MoEConfig, *,
     e_l = cfg.n_experts // mp
     act = ACTIVATIONS[cfg.act]
 
-    def local_fn(xt_l, router_w, w_gate_l, w_up_l, w_down_l):
+    names = ("w_gate", "w_up", "w_down")
+    fields = [t for k in names for t in _tensors_of(p[k])]
+
+    def local_fn(x_l, router_w, *fields_l):
+        it = iter(fields_l)
+        w_gate_l, w_up_l, w_down_l = (_rebuild(p[k], it) for k in names)
+        xt_l = x_l.reshape(-1, d)
         logits = ops.dense_matmul(xt_l.to(torch.float32), router_w)
         probs = torch.softmax(logits, dim=-1)
         hidden, meta = _dispatch_local(xt_l, probs, cfg, c_l)  # (E, c_l, d)
@@ -313,9 +349,10 @@ def moe_apply_ep(p: dict, x: torch.Tensor, cfg: MoEConfig, *,
                           "w_down": w_down_l}, hidden, act, lambda h: h)
         out_e = _all_to_all(out_e.reshape(e_l, mp, c_l, d).transpose(0, 1),
                             group).reshape(cfg.n_experts, c_l, d)
-        return _combine_local(out_e, meta, xt_l.shape[0], d, xt_l.dtype)
+        return _combine_local(out_e, meta, xt_l.shape[0], d,
+                              xt_l.dtype).reshape(x_l.shape)
 
-    tok = list(placements(P(tok_axes, None), mesh))
+    tok = list(placements(tok_spec, mesh))
     experts = list(placements(P(model_axis, None, None), mesh))
     # a whole input's gradient is a partial sum over the ranks whose tokens
     # reached it: the router's over every token shard, an expert's over
@@ -323,13 +360,16 @@ def moe_apply_ep(p: dict, x: torch.Tensor, cfg: MoEConfig, *,
     router_grad = grad_placements(tok)
     experts_grad = [g if isinstance(e, Replicate) else e
                     for g, e in zip(router_grad, experts)]
+    # an expert stack's tensors cut over the experts; a pack's scale and
+    # zero-point one for all experts whole
+    cut = [t.shape[0] == cfg.n_experts for t in fields]
     yt = local_map(local_fn, out_placements=tok,
-                   in_placements=(tok, rep, experts, experts, experts),
-                   in_grad_placements=(tok, router_grad, experts_grad,
-                                       experts_grad, experts_grad),
+                   in_placements=(tok, rep, *(experts if c else rep
+                                              for c in cut)),
+                   in_grad_placements=(tok, router_grad, *(
+                       experts_grad if c else router_grad for c in cut)),
                    device_mesh=mesh, redistribute_inputs=True)(
-        xt, p["router"]["w"].to(torch.float32), p["w_gate"], p["w_up"],
-        p["w_down"])
+        xt, p["router"]["w"].to(torch.float32), *fields)
 
     if "shared" in p:
         yt = yt + glu_mlp_apply(p["shared"], xt, act=cfg.act, ctx=ctx,

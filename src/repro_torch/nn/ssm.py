@@ -28,8 +28,8 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.common.device import no_tf32
 from repro_torch.common.sharding import over_batch
-from repro_torch.nn.layers import (dense_apply, dense_init, rmsnorm_apply,
-                                   rmsnorm_init, silu)
+from repro_torch.nn.layers import (dense_apply, dense_init, randn,
+                                   rmsnorm_apply, rmsnorm_init, silu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +62,7 @@ def ssm_init(gen: torch.Generator, cfg: SSMConfig, device="cpu",
     kw = dict(device=device, dtype=dtype)
     d_in_proj = 2 * cfg.d_inner + 2 * cfg.n_groups * cfg.d_state + cfg.n_heads
     in_proj = dense_init(gen, cfg.d_model, d_in_proj, **kw)
-    conv_w = torch.randn((cfg.d_conv, cfg.conv_dim), generator=gen,
-                         device=gen.device) * 0.2
+    conv_w = randn(gen, (cfg.d_conv, cfg.conv_dim), device) * 0.2
     return {
         "in_proj": in_proj,
         "conv_w": conv_w.to(**kw),

@@ -190,8 +190,9 @@ class _SteQdq(torch.autograd.Function):
         lo, hi = quantizer_range(qp)
         ctx.save_for_backward((x >= lo) & (x <= hi))
         if qp.kind != KIND_INT_AFFINE and qp.maxval.numel() == 1:
-            from repro_torch.kernels import ops   # ops imports this module
-            return ops.msfp_quantize(x, qp, folded=True)
+            # ops (under nn.partition) imports this module
+            from repro_torch.nn import partition
+            return partition.msfp_quantize(x, qp, folded=True)
         return apply_qdq(x, qp, form="folded")
 
     @staticmethod

@@ -161,6 +161,75 @@ def loader(mesh) -> dict:
             "full": [b.full_tensor() for b in batches]}
 
 
+def kernels_on_mesh(mesh) -> dict:
+    """``nn/partition.py``'s ops on real tensors (the plain versions on the
+    CPU): W4A4 products whose (32, 16) weight's pack is cut over FSDP rows
+    and byte columns, over its contraction, and over its byte columns
+    with a per-channel scale, x cut over data; the act snap of a partial
+    sum; ``kv4_store`` and ``kv4_attend`` on a cache cut over its batch
+    (data) and slots (model). Each result whole ("got") beside the same
+    op on whole tensors ("want")."""
+    import dataclasses
+
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard, distribute_tensor)
+
+    from repro_torch.core.qmodule import pack_weight
+    from repro_torch.kernels import ops
+    from repro_torch.nn import partition
+    from repro_torch.quant.fakequant import QuantizerParams
+    g = torch.Generator().manual_seed(7)
+    rep = Replicate()
+    x = torch.randn(4, 3, 32, generator=g)
+    w = torch.randn(32, 16, generator=g)
+    act = QuantizerParams(0, 2, 1, 4, torch.tensor(4.0))
+    xd = distribute_tensor(x, mesh, [Shard(0), rep])
+    out = {}
+    for name, maxval, pls in (
+            ("fsdp rows, byte columns", torch.tensor(2.0), [Shard(0),
+                                                            Shard(1)]),
+            ("contraction", torch.tensor(2.0), [rep, Shard(0)]),
+            ("byte columns, per-channel scale", w.abs().amax(0),
+             [rep, Shard(1)])):
+        pw = pack_weight(w, QuantizerParams(0, 2, 1, 4, maxval))
+        cut = [Shard(0) if maxval.ndim and p == Shard(1) else rep
+               for p in pls]
+        placed = dataclasses.replace(
+            pw, packed=distribute_tensor(pw.packed, mesh, pls),
+            scale=distribute_tensor(pw.scale, mesh, cut),
+            zero_point=distribute_tensor(pw.zero_point, mesh, cut))
+        y = partition.w4a4_matmul(xd, placed, act)
+        out[name] = {"got": y.full_tensor(),
+                     "want": ops.w4a4_matmul(x, pw, act)}
+    half = DTensor.from_local(x * 0.5, mesh, [rep, Partial()],
+                              run_check=False)
+    out["act snap of a partial sum"] = {
+        "got": partition.msfp_quantize(half, act).full_tensor(),
+        "want": ops.msfp_quantize(x, act)}
+    b, s, n_kv, hd = 2, 8, 2, 16
+    cache = [torch.randint(0, 256, (b, s, n_kv, hd // 2), generator=g,
+                           dtype=torch.uint8) for _ in range(2)] + [
+        torch.rand(b, s, n_kv, generator=g).half() for _ in range(2)]
+    k_new, v_new = (torch.randn(b, n_kv, hd, generator=g) for _ in range(2))
+    q = torch.randn(b, n_kv, 3, hd, generator=g)
+    cut = [Shard(0), Shard(1)]
+    placed = [distribute_tensor(t, mesh, cut) for t in cache]
+    for pos in (1, 5):
+        partition.kv4_store(*(distribute_tensor(t, mesh, [Shard(0), rep])
+                              for t in (k_new, v_new)), *placed, pos)
+        ops.kv4_store(k_new, v_new, *cache, pos)
+    out["kv4_store, slots 1 and 5"] = {
+        "got": torch.cat([t.full_tensor().reshape(-1).float()
+                          for t in placed]),
+        "want": torch.cat([t.reshape(-1).float() for t in cache])}
+    o = partition.kv4_attend(distribute_tensor(q, mesh, [Shard(0), rep]),
+                             *placed, 6, hd ** -0.5)
+    out["kv4_attend over 6 slots"] = {
+        "got": o.full_tensor(),
+        "want": ops.kv4_attend(q, *cache, 6, hd ** -0.5)}
+    return out
+
+
 SCENARIOS = {
     "train": lambda inputs, mesh, d: train_step(inputs, mesh),
     "train_no_dp_reduction": lambda inputs, mesh, d: train_step(
@@ -171,6 +240,7 @@ SCENARIOS = {
     "checkpoint": lambda inputs, mesh, d: checkpoint_remesh(
         mesh, os.path.join(d, "ckpt")),
     "loader": lambda inputs, mesh, d: loader(mesh),
+    "kernels_on_mesh": lambda inputs, mesh, d: kernels_on_mesh(mesh),
 }
 
 

@@ -15,7 +15,13 @@ Limits, stated before the runs:
   * a checkpoint saved from (2, 2) restores onto (1, 4) with the same
     values and the new placements;
   * ``ShardedLoader``'s streams differ across data ranks and agree within
-    one.
+    one;
+  * ``nn/partition.py``'s W4A4 products (the pack cut over FSDP rows and
+    byte columns, over its contraction, over its byte columns with a
+    per-channel scale) within 1e-5 relative of the same product on whole
+    tensors (the contraction's partial sums add in another order), and
+    its act snap of a partial sum, kv4_store and kv4_attend on a cache cut
+    over batch and slots, bit for bit.
 
 The world is spawned once for the file, and the references are computed
 while it runs.
@@ -39,7 +45,12 @@ from repro_torch.nn.moe import MoEConfig, moe_apply
 from test_torch_distributed import (LOSS_LIMIT, PARAM_LIMIT, max_param_err,
                                     meshless_step)
 
-NAMES = ("train_ssm", "moe_ep", "checkpoint", "loader")
+NAMES = ("train_ssm", "moe_ep", "checkpoint", "loader", "kernels_on_mesh")
+KERNEL_CASES = ("fsdp rows, byte columns", "contraction",
+                "byte columns, per-channel scale",
+                "act snap of a partial sum", "kv4_store, slots 1 and 5",
+                "kv4_attend over 6 slots")
+PRODUCT_LIMIT = 1e-5
 MOE_LIMIT = 1e-4
 MOE_CFG = dict(d_model=32, d_ff=16, n_experts=4, top_k=2, n_shared=1,
                capacity_factor=8.0)
@@ -112,6 +123,18 @@ def test_checkpoint_restores_onto_a_different_mesh(world):
             assert leaf["mesh_shape"] == (1, 4)
         # (1, 4): the model axis cuts w's 8 columns into 2 a rank
         assert torch.equal(w["local"], w["full"][:, 2 * rank:2 * rank + 2])
+
+
+@pytest.mark.parametrize("case", KERNEL_CASES)
+def test_kernels_on_mesh_match_whole_tensors(world, case):
+    for r in world["kernels_on_mesh"]:
+        got, want = r[case]["got"], r[case]["want"]
+        assert got.shape == want.shape and got.dtype == want.dtype
+        if case in KERNEL_CASES[:3]:
+            assert float((got - want).abs().max()) <= \
+                PRODUCT_LIMIT * float(want.abs().max())
+        else:
+            assert torch.equal(got, want)
 
 
 def test_sharded_loader_streams_are_disjoint_across_ranks(world):

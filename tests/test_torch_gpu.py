@@ -234,14 +234,98 @@ def test_kv4_attend_matches_plain(cuda, dt, hd, softcap, b, slots, valid):
 
 @pytest.mark.gpu
 def test_kv4_attend_over_limit_raises(cuda):
-    """A cache whose G x S logits do not fit one block's shared memory is
-    refused before any launch."""
+    """A cache whose G x S logits do not fit one block's shared memory:
+    the shared-memory path forced there is refused before any launch; the
+    dispatcher takes the global workspace instead, one launch."""
     cache, draw = _kv4_cache(1, 20_000, 3, 64, cuda, 13)
     q = draw(1, 3, 3, 64).to(cuda)
     before = k45.kv4_attend_cuda.launches
     with pytest.raises(ValueError, match="shared memory"):
-        ops.kv4_attend(q, *cache, 20_000, 0.125)
+        k45.kv4_attend_cuda(q, *cache, 20_000, 0.125, workspace=False)
     assert k45.kv4_attend_cuda.launches == before
+    out = ops.kv4_attend(q, *cache, 20_000, 0.125)
+    assert k45.kv4_attend_cuda.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+
+
+# (B, n_kv, G, hd, slots, valid) past one block's shared memory: gemma3-4b's
+# heads over decode_32k's cache, full and part-filled, and llama4-scout's
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n_kv,g,hd,slots,valid", [
+    (2, 4, 2, 256, 32768, 32768), (2, 4, 2, 256, 32768, 30001),
+    (1, 8, 5, 128, 16384, 16384)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_kv4_attend_workspace_matches_plain(cuda, dt, b, n_kv, g, hd, slots,
+                                            valid):
+    """The logits in the global workspace: within kv4_attend_allowed of
+    the plain version on the card, one launch."""
+    assert not k45.attend_logits_shared(g, hd, slots)
+    cache, draw = _kv4_cache(b, slots, n_kv, hd, cuda, valid + g)
+    q = draw(b, n_kv, g, hd).to(cuda, dt)
+    args = (valid, hd ** -0.5, None)
+    want = k45.kv4_attend_plain(q, *cache, *args)
+    before = k45.kv4_attend_cuda.launches
+    got = ops.kv4_attend(q, *cache, *args)
+    assert k45.kv4_attend_cuda.launches == before + 1
+    allowed = k45.kv4_attend_allowed(q, *cache, *args, want)
+    diff = (got.double() - want.double()).abs()
+    assert not bool((diff > allowed).any()), (int((diff > allowed).sum()),
+                                              float(diff.max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_kv,g,hd", [(3, 3, 64), (4, 2, 256), (8, 5, 128),
+                                       (1, 8, 16)])
+@pytest.mark.parametrize("softcap", [None, 5.0])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_kv4_attend_workspace_same_bits(cuda, dt, softcap, n_kv, g, hd):
+    """Where the logits fit shared memory (2048 slots, 1500 valid), the
+    workspace path forced gives the shared-memory path's bits."""
+    assert k45.attend_logits_shared(g, hd, 2048)
+    cache, draw = _kv4_cache(2, 2048, n_kv, hd, cuda, g + hd)
+    q = draw(2, n_kv, g, hd).to(cuda, dt)
+    args = (1500, hd ** -0.5, softcap)
+    shared = k45.kv4_attend_cuda(q, *cache, *args, workspace=False)
+    ws = k45.kv4_attend_cuda(q, *cache, *args, workspace=True)
+    assert torch.equal(shared.view(torch.uint8), ws.view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,slots,n_kv,g", [(128, 32768, 4, 2),
+                                            (1, 524288, 1, 2)])
+def test_kv4_pair_at_the_last_slot_of_a_large_cache(cuda, b, slots, n_kv, g):
+    """kv4_store at the last slot and last batch row, and kv4_attend over
+    every slot, of caches whose byte offsets pass 32 bits or nearly: decode
+    _32k's B 128 x 32768 x 4 x hd 256 (2^31 bytes of k codes) and long
+    _500k's 524288 slots. The stored row's codes and scales are the plain
+    encode's, bit for bit; the last batch row's output is within
+    kv4_attend_allowed of the plain version over that row's cache."""
+    hd = 256
+    gen = torch.Generator(device=cuda).manual_seed(slots)
+    codes = (b, slots, n_kv, hd // 2)
+    cache = [torch.randint(0, 256, codes, generator=gen, device=cuda,
+                           dtype=torch.uint8) for _ in range(2)] + [
+        (torch.rand(b, slots, n_kv, generator=gen, device=cuda) * 4).half()
+        for _ in range(2)]
+    k_new, v_new = (torch.randn(b, n_kv, hd, generator=gen, device=cuda)
+                    .bfloat16() for _ in range(2))
+    last = slots - 1
+    ops.kv4_store(k_new, v_new, *cache, last)
+    for t, codes_, scales in ((k_new, cache[0], cache[2]),
+                              (v_new, cache[1], cache[3])):
+        want_c, want_s = k45.kv4_encode_2d_plain(t[-1].cpu())
+        assert torch.equal(codes_[-1, last].cpu(), want_c)
+        assert torch.equal(scales[-1, last].cpu().view(torch.int16),
+                           want_s.view(torch.int16))
+    q = torch.randn(b, n_kv, g, hd, generator=gen, device=cuda).bfloat16()
+    args = (slots, hd ** -0.5, None)
+    got = ops.kv4_attend(q, *cache, *args)[-1:]
+    row = [x[-1:] for x in cache]
+    want = k45.kv4_attend_plain(q[-1:], *row, *args)
+    allowed = k45.kv4_attend_allowed(q[-1:], *row, *args, want)
+    diff = (got.double() - want.double()).abs()
+    assert not bool((diff > allowed).any()), (int((diff > allowed).sum()),
+                                              float(diff.max()))
 
 
 @pytest.mark.gpu

@@ -213,14 +213,26 @@ def test_attend_tolerance_admits_sum_order_and_sees_faults(dt, softcap):
 
 
 def test_attend_shape_limits():
-    """The kernel's limits raise ValueError naming them; the serve shapes
-    (G 3, hd 64) fit up to the long cache the ROADMAP names."""
+    """The kernel's limits raise ValueError naming them. A cache whose
+    G x S f32 logits pass one block's shared memory takes the global
+    workspace instead, so any length passes the shape check; the
+    shared-memory path forced there raises, naming the limit."""
     tkv4.check_attend_shape(3, 64, 2048)
     tkv4.check_attend_shape(1, 16, 1)
+    tkv4.check_attend_shape(3, 64, 20_000)
+    tkv4.check_attend_shape(8, 256, 524_288)
     assert tkv4.attend_smem_bytes(3, 64, 64) == 2 * 128 * 48 + 4 * (
         192 + 256 + 64 + 192)
+    assert tkv4.attend_smem_bytes(3, 64, 20_000, logits=False) == \
+        2 * 128 * 48 + 4 * (192 + 256 + 64)
+    assert tkv4.attend_logits_shared(3, 64, 2048)
+    assert not tkv4.attend_logits_shared(3, 64, 20_000)
+    m = dict(device="meta")
+    fp4 = (torch.empty(1, 20_000, 1, 32, dtype=torch.uint8, **m),) * 2 + (
+        torch.empty(1, 20_000, 1, dtype=torch.float16, **m),) * 2
+    q = torch.empty(1, 1, 3, 64, dtype=torch.bfloat16, **m)
     with pytest.raises(ValueError, match="shared memory"):
-        tkv4.check_attend_shape(3, 64, 20_000)
+        tkv4.kv4_attend_cuda(q, *fp4, 20_000, 0.125, workspace=False)
     with pytest.raises(ValueError, match="multiple of 16"):
         tkv4.check_attend_shape(3, 8, 64)
     with pytest.raises(ValueError, match="1 to 8"):
