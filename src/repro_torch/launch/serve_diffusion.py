@@ -42,10 +42,13 @@ Observability (``serving/obs``) switches on when any of ``--trace-out``
 (Perfetto-loadable span trace), ``--metrics-out`` (text exposition of the
 metrics registry) or ``--report-json`` (machine-readable run report:
 summary, SLO verdict, engine stats, kernel route counts, outcome digest)
-is given; otherwise the engine runs with the no-op ``NULL_OBS``. Tracing
-follows the engine clock, so a virtual-clock replay's trace is
-deterministic. With obs on, the kernel profiler times each dispatch (CUDA
-events on the card) into ``kernel_call_seconds``.
+is given; otherwise the engine runs with the no-op ``NULL_OBS``, which
+records nothing and opens no profiler range. The span trace follows the
+engine clock, so a virtual-clock replay's trace is deterministic; each
+span (the tick, its phases, a bank build's merge and pack) is also a
+``torch.profiler`` range on the profiler's clock, for a run under the
+profiler or ``emit_nvtx``. With obs on, the kernel profiler times each
+dispatch (CUDA events on the card) into ``kernel_call_seconds``.
 """
 from __future__ import annotations
 

@@ -43,11 +43,30 @@ cost, with group-splitting preemption — see ``scheduler``); the engine
 feeds the scheduler's ``CostModel`` with observed forward and
 segment-build durations measured on the engine clock.
 
-Observability (``serving/obs``): request/tick/fetch/forward spans and
-per-tick registry samples, each behind one ``obs.enabled`` branch; the
-default ``NULL_OBS`` skips them all, an ``Observability`` bundle records
-them on the engine's own clock (so a ``VirtualClock`` replay traces
-deterministically, and outcomes are the same with obs on or off).
+Observability (``serving/obs``): request spans, the tick's spans and
+per-tick registry samples, each behind an ``obs.enabled`` branch; the
+default ``NULL_OBS`` skips them all (no span, no profiler range), an
+``Observability`` bundle records them in its buffer on the engine's own
+clock (so a ``VirtualClock`` replay traces deterministically, and
+outcomes are the same with obs on or off). A busy tick's span ``tick``
+holds its phases in this order, each a child span:
+
+  * ``admit`` — ``batcher.admit`` and the expiries (an idle tick has only
+    this one);
+  * ``group`` — ``batcher.groups`` and ``select``;
+  * ``bank_fetch`` (cat ``bank``) — the segment's weights;
+  * ``forward`` — holding ``stage`` (the eval items, the batch's
+    ``torch.cat``, the timestep and label tensors, the padding) and
+    ``launch`` (the host's enqueue of one UNet forward) for each
+    partition, then ``sync`` (the device synchronise; zero length on the
+    CPU);
+  * ``advance`` — the CFG combine, ``sampler_advance``, retire and
+    ``on_complete`` of every member;
+  * ``prefetch`` — the bank prefetches for the members' next segments.
+
+Each span is also a profiler range named ``<cat>.<name>`` on the
+profiler's clock (``serving/obs/tracer``), so under ``torch.profiler``
+the card's idle gaps can be put down to the phase the host was in.
 """
 from __future__ import annotations
 
@@ -163,6 +182,7 @@ class DiffusionServingEngine:
                 "bank_fetch_seconds",
                 help="engine-clock stalls fetching the tick's segment")
         self._shapes: set[tuple] = set()     # (bucket, has_y) run so far
+        self._phase_span = None              # see _next_phase
         self._last_padded_rows = 0
         self._next_rid = 0
         self.tick_count = 0
@@ -225,11 +245,12 @@ class DiffusionServingEngine:
 
     def tick(self) -> list[RequestState]:
         obs = self.obs
-        tick_span = None
+        tick_span = phase = None
         if obs.enabled:
             obs.tracer.set_track(self.replica or self.model)
             tick_span = obs.tracer.begin(
                 "tick", cat="engine", args={"tick": self.tick_count})
+            phase = obs.tracer.begin("admit", cat="engine")
         now = self._now()
         admitted, expired = self.batcher.admit(now, self.tick_count)
         if obs.enabled:
@@ -244,6 +265,8 @@ class DiffusionServingEngine:
                                      args={"outcome": "expired"})
             for cb in self.on_expire:
                 cb(rs)
+        if obs.enabled:
+            obs.tracer.end(phase)
         if not self.batcher.inflight:
             if obs.enabled:
                 tick_span.args["idle"] = True
@@ -252,12 +275,15 @@ class DiffusionServingEngine:
             for cb in self.on_tick_end:
                 cb(self)
             return []
+        if obs.enabled:
+            phase = obs.tracer.begin("group", cat="engine")
         groups = self.batcher.groups(
             lambda rs: self.bank.segment_of(sampler_needed_t(rs.state)))
         seg, members = self.batcher.select(groups, self.tick_count, now=now)
         self.batcher.current_seg = seg
         fetch_span = None
         if obs.enabled:
+            obs.tracer.end(phase)
             tick_span.args.update(
                 {"seg": seg, "members": [rs.req.rid for rs in members],
                  "n_groups": len(groups), "policy": self.batcher.policy})
@@ -285,6 +311,10 @@ class DiffusionServingEngine:
             obs.tracer.end(fetch_span)
             self._h_fetch.observe(self._now() - t_fetch)
 
+        fwd_span = None
+        if obs.enabled:
+            fwd_span = obs.tracer.begin("forward", cat="engine")
+            self._phase_span = obs.tracer.begin("stage", cat="engine")
         # build eval items: (rs, role, t, x (1,H,W,C), y)
         items = []
         for rs in members:
@@ -296,10 +326,6 @@ class DiffusionServingEngine:
             else:
                 items.append((rs, _PLAIN, t, x, rs.req.y))
 
-        fwd_span = None
-        if obs.enabled:
-            fwd_span = obs.tracer.begin("forward", cat="engine",
-                                        args={"items": len(items)})
         t_compute = self._now()
         n_shapes_before = len(self._shapes)
         eps_by_item = self._run_partitions(params, items)
@@ -313,12 +339,14 @@ class DiffusionServingEngine:
                                            self._last_padded_rows)
         if obs.enabled:
             dt = self._now() - t_compute
-            fwd_span.args.update({"padded_rows": self._last_padded_rows,
+            fwd_span.args.update({"items": len(items),
+                                  "padded_rows": self._last_padded_rows,
                                   "compiled": compiled})
             obs.tracer.end(fwd_span)
             # the same engine-clock observation the cost EWMA consumed
             if not compiled:
                 self._h_forward.observe(dt)
+            phase = obs.tracer.begin("advance", cat="engine")
 
         finished = []
         tick = self.tick_count
@@ -352,7 +380,11 @@ class DiffusionServingEngine:
                 for cb in self.on_complete:
                     cb(rs)
         self.tick_count += 1
+        if obs.enabled:
+            obs.tracer.end(phase)
         if self.prefetch_enabled:
+            if obs.enabled:
+                phase = obs.tracer.begin("prefetch", cat="engine")
             # Requests that just advanced may cross into a new routing
             # segment next step — build/pack it before it is asked for.
             # Async mode hands the build to the bank's background thread
@@ -362,6 +394,8 @@ class DiffusionServingEngine:
             for s in {self.bank.segment_of(sampler_needed_t(rs.state))
                       for rs in members if not rs.state.done}:
                 self.bank.prefetch(s, block=not self.async_prefetch)
+            if obs.enabled:
+                obs.tracer.end(phase)
         if obs.enabled:
             tick_span.args["finished"] = len(finished)
             obs.tracer.end(tick_span)
@@ -377,25 +411,34 @@ class DiffusionServingEngine:
         and without a label cannot share a forward; each partition still
         batches arbitrary timesteps (``t`` is per-sample).
         """
+        traced = self.obs.enabled
         eps_by_item: dict[int, dict] = {}
         padded_rows = 0
         for has_y in (False, True):
             part = [it for it in items if (it[4] is not None) == has_y]
             if not part:
                 continue
+            if traced and self._phase_span is None:
+                self._next_phase("stage")       # a second partition's
             x = torch.cat([it[3] for it in part], dim=0)
             tb = torch.tensor([it[2] for it in part], dtype=torch.float32,
                               device=self.device)
             y = (torch.tensor([it[4] for it in part], dtype=torch.int64,
                               device=self.device) if has_y else None)
             eps = self._forward(params, x, tb, y)
+            if traced:
+                self._next_phase(None)
             self.n_forwards += 1
             self.n_samples_batched += len(part)
             padded_rows += self._bucket(len(part))
             for j, (rs, role, *_rest) in enumerate(part):
                 eps_by_item.setdefault(id(rs), {})[role] = eps[j:j + 1]
+        if traced:
+            self._next_phase("sync")            # zero length on the CPU
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if traced:
+            self._next_phase(None)
         self._last_padded_rows = padded_rows
         for cb in self.on_forward:
             cb(self, padded_rows)
@@ -420,9 +463,22 @@ class DiffusionServingEngine:
                 y = torch.cat([y, y[:1].expand(pad)], dim=0)
             self.n_padded_samples += pad
         self._shapes.add((b, y is not None))
+        if self.obs.enabled:
+            self._next_phase("launch")
         with torch.inference_mode():
             eps = self._apply(params, x, tb, y, self.ctx)
         return eps[:n]
+
+    def _next_phase(self, name: str | None) -> None:
+        """With obs on: end the forward's open phase span (``stage``,
+        ``launch`` or ``sync``) and begin ``name`` in its place (``None``:
+        none). The phases cross ``_forward``, which the benchmark and the
+        chip checks wrap, so the open one is kept here."""
+        tracer = self.obs.tracer
+        if self._phase_span is not None:
+            tracer.end(self._phase_span)
+        self._phase_span = (tracer.begin(name, cat="engine")
+                            if name is not None else None)
 
     def pop_result(self, rid: int) -> RequestState:
         """Hand a finished request to its caller and release the engine's

@@ -6,10 +6,16 @@ hangs telemetry off:
 
   * ``tracer`` — structured spans (``obs.tracer``): request lifecycle
     (submit -> admit -> per-eval -> complete/expire, as Chrome async
-    events keyed by rid), engine ticks with scheduler decision
-    annotations, weight-bank build/prefetch spans (including from the
-    background prefetch worker thread), and per-dispatch kernel-route
-    marks. Exports Chrome trace-event JSON (Perfetto-loadable) or JSONL.
+    events keyed by rid), engine ticks and their phases (``admit``,
+    ``group``, ``bank_fetch``, ``forward`` with ``stage``/``launch``/
+    ``sync``, ``advance``, ``prefetch``) with scheduler decision
+    annotations, weight-bank build spans with their ``merge`` and
+    ``pack`` stages (including from the background prefetch worker
+    thread), and per-dispatch kernel-route marks. Exports Chrome
+    trace-event JSON (Perfetto-loadable) or JSONL. Every duration span is
+    also a ``torch.profiler`` range named ``<cat>.<name>``, on the
+    profiler's clock, so a profiled run lines the spans up with the
+    device's kernels.
   * ``metrics`` — the counter/gauge/histogram registry
     (``obs.metrics``): the single machine-readable home for the numbers
     previously scattered across ``engine.stats()``, ``bank.describe()``,
@@ -23,15 +29,17 @@ hangs telemetry off:
 
 Contracts:
 
-  * **Determinism** — the tracer's clock is the *engine's* clock
-    (``bind_engine``), never a wall clock of its own; under a
+  * **Determinism** — the tracer's buffer keeps the *engine's* clock
+    (``bind_engine``), never a wall clock of its own (only the profiler
+    ranges carry the profiler's); under a
     ``VirtualClock`` replay the whole trace is deterministic and the
     golden outcome digest is unchanged whether obs is on or off (the
     layer only reads state; pinned by tests/test_obs.py).
   * **Near-zero disabled overhead** — ``NULL_OBS`` (the default
     everywhere) has ``enabled=False``; every instrumentation point in
     engine/scheduler/bank guards with that single branch before building
-    any args, and the kernels hook is one module-global ``None`` check.
+    any args, and opens no profiler range; the kernels hook is one
+    module-global ``None`` check.
   * **Thread safety** — see ``tracer``/``metrics`` module docs; bank
     spans are emitted from the prefetch worker under churn without
     corrupting the buffer (pinned by tests/test_torch_obs.py).

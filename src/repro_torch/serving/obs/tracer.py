@@ -11,6 +11,15 @@ one Chrome JSON object (``export_chrome``) or as newline-delimited JSON
 
 Design constraints (see ``serving/obs/__init__``):
 
+  * **Profiler ranges** — every duration span is also a
+    ``torch.profiler`` range named ``<cat>.<name>`` (``engine.tick``,
+    ``engine.advance``, ``bank.merge``), opened in ``begin`` and closed in
+    ``end`` on the emitting thread. Under a running ``torch.profiler`` it
+    lands as a ``user_annotation`` event on the profiler's own clock,
+    beside the device's kernels, so an idle gap on the card can be put
+    down to the span the host was in; under
+    ``torch.autograd.profiler.emit_nvtx`` it is an NVTX range. The
+    buffer's own events keep the engine's clock.
   * **Deterministic timestamps** — the tracer never reads a wall clock
     itself; ``set_clock`` binds it to the *engine's* clock, so a
     ``VirtualClock`` replay emits the same timestamps on every machine
@@ -25,7 +34,7 @@ Design constraints (see ``serving/obs/__init__``):
   * **Cheap when disabled** — every public method early-returns on
     ``self.enabled`` (and the instrumentation points in engine/bank/
     scheduler guard with a single ``obs.enabled`` branch before even
-    building the args dict).
+    building the args dict); a disabled tracer opens no range.
 
 Thread identity: the first thread to emit gets tid 0 (the engine thread
 in practice), later threads get ascending tids in first-emission order;
@@ -38,6 +47,8 @@ import collections
 import json
 import threading
 
+from torch.autograd.profiler import record_function
+
 _PID = 1
 
 
@@ -45,9 +56,10 @@ class Span:
     """An open duration span; ``end()`` (via the tracer) publishes it as
     one complete ``ph="X"`` event. ``args`` may be mutated until then —
     annotations discovered mid-span (chosen segment, padded rows) attach
-    to the span they describe."""
+    to the span they describe. ``range`` is its open profiler range
+    (``None`` once closed)."""
 
-    __slots__ = ("name", "cat", "ts", "tid", "args")
+    __slots__ = ("name", "cat", "ts", "tid", "args", "range")
 
     def __init__(self, name: str, cat: str, ts: float, tid: int,
                  args: dict | None):
@@ -56,6 +68,12 @@ class Span:
         self.ts = ts
         self.tid = tid
         self.args = args if args is not None else {}
+        self.range = None
+
+    def close_range(self) -> None:
+        rng, self.range = self.range, None
+        if rng is not None:
+            rng.__exit__(None, None, None)
 
 
 class SpanTracer:
@@ -125,6 +143,8 @@ class SpanTracer:
         if not self.enabled:
             return None
         sp = Span(name, cat, self.now_us(), self._tid(), args)
+        sp.range = record_function(f"{cat}.{name}")
+        sp.range.__enter__()
         with self._lock:
             self._stacks.setdefault(sp.tid, []).append(sp)
         return sp
@@ -132,12 +152,18 @@ class SpanTracer:
     def end(self, span: Span | None) -> None:
         if not self.enabled or span is None:
             return
+        leaked = []
         with self._lock:
             stack = self._stacks.get(span.tid, [])
             # pop through (tolerates a leaked inner span on error paths
             # rather than corrupting every later span's nesting)
-            while stack and stack.pop() is not span:
-                pass
+            if span in stack:
+                while (top := stack.pop()) is not span:
+                    leaked.append(top)
+        # innermost first, so the profiler's ranges stay nested
+        for sp in leaked:
+            sp.close_range()
+        span.close_range()
         self._emit({"ph": "X", "name": span.name, "cat": span.cat,
                     "pid": _PID, "tid": span.tid, "ts": span.ts,
                     "dur": max(self.now_us() - span.ts, 0.0),

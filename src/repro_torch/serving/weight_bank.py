@@ -444,14 +444,24 @@ class WeightBank:
             self.evictions += 1
 
     def _build(self, seg: Segment) -> dict:
+        """Merge (span ``merge``: the adapters' selection and
+        ``talora.merge_into_tree``) then pack (span ``pack``), both inside
+        ``_build_install``'s ``bank_build`` span with obs on."""
+        obs = self.obs
         params = self.q_params
         if self.hubs and self.router is not None:
+            if obs.enabled:
+                span = obs.tracer.begin("merge", cat="bank")
             h = self.talora_cfg.hub_size
             sels = {name: F.one_hot(torch.tensor(seg.slots[i]), h).to(
                         self.device, torch.float32)
                     for i, name in enumerate(self.names)}
             params = talora.merge_into_tree(params, self.hubs, sels,
                                             self.talora_cfg)
+            if obs.enabled:
+                obs.tracer.end(span)
+        if obs.enabled:
+            span = obs.tracer.begin("pack", cat="bank")
         if self.build_fn is not None:
             packed = self.build_fn(params)
             flat = flatten_paths(packed)
@@ -461,6 +471,8 @@ class WeightBank:
         else:
             packed, stats = pack_param_tree(
                 params, self.plan, fallback_dtype=self.fallback_dtype)
+        if obs.enabled:
+            obs.tracer.end(span)
         if self.pack_stats is None:
             self.pack_stats = stats
         return packed

@@ -11,9 +11,13 @@ What is held, in order:
     overflow accounting, export round-trips;
   * ``NULL_OBS`` inert;
   * a traced golden replay at tiny_ddim(8) on the CPU under the virtual
-    clock: the full span taxonomy, the engine counters in the registry,
-    a deterministic trace, and the same tick log, outcomes and x0 with obs
-    on and off;
+    clock: the full span taxonomy (every busy tick's phases once each, in
+    order; every bank build's merge and pack), the engine counters in the
+    registry, a deterministic trace, and the same tick log, outcomes and
+    x0 with obs on and off;
+  * the tracer's spans as profiler ranges: one for one, named
+    ``<cat>.<name>`` and nested as in the buffer, a leaked span's range
+    closed by the outer ``end``, none with ``NULL_OBS``;
   * the kernel profiler's route counts equal to ``ops.ROUTES``;
   * bank spans from threads churning the prefetch path reconcile, under
     the order-tracking lock monitor;
@@ -24,6 +28,7 @@ What is held, in order:
 import ast
 import json
 import pathlib
+import re
 import threading
 
 import numpy as np
@@ -238,7 +243,7 @@ def test_traced_golden_replay_has_full_taxonomy_and_identical_outcomes(
     assert len(begins) == len(ends) == len(plain["outcomes"]) == 6
     assert {e["id"] for e in begins} == {str(r) for r in plain["outcomes"]}
     assert all(e["args"]["outcome"] == "complete" for e in ends)
-    assert len(by_name["admit"]) == 6
+    assert len([e for e in by_name["admit"] if e["cat"] == "request"]) == 6
     assert len(by_name["eval"]) == sum(n for n, _ in
                                        plain["outcomes"].values())
     ticks = by_name["tick"]
@@ -257,6 +262,16 @@ def test_traced_golden_replay_has_full_taxonomy_and_identical_outcomes(
                        and e["ts"] + e["dur"] <= t["ts"] + t["dur"]
                        for t in ticks), f"{name} span outside every tick"
     assert len(by_name["bank_build"]) == eng.bank.builds > 0
+    # the buffer holds spans in the order they end: every busy tick holds
+    # its phases once each, in order, a stage and a launch a partition;
+    # every bank build its merge and pack
+    build = "(?:merge pack bank_build )*"
+    tick = (f"admit (?:group {build}bank_fetch (?:stage launch )+sync "
+            f"forward advance {build}prefetch )?tick ")
+    order = "".join(e["name"] + " " for e in evs if e["ph"] == "X")
+    assert re.fullmatch(f"(?:{tick})+", order)
+    assert len(by_name["launch"]) == eng.n_forwards
+    assert len(by_name["merge"]) == len(by_name["pack"]) == eng.bank.builds
     assert len(by_name["select"]) == len(busy)
     kernel = [e for e in evs if e["cat"] == "kernel"]
     assert {e["name"] for e in kernel} == {
@@ -343,6 +358,7 @@ def test_bank_spans_from_threaded_churn_reconcile():
     bank.obs = obs
     segs = list(range(bank.n_segments))
     errs = []
+    bank.prefetch(0, block=False)       # one build on the worker, at least
 
     def worker(wid):
         rng = np.random.default_rng(wid)
@@ -370,6 +386,17 @@ def test_bank_spans_from_threaded_churn_reconcile():
     for e in builds:
         assert e["ph"] == "X" and e["dur"] >= 0 and "seg" in e["args"]
         json.dumps(e)
+    # on each track a build's merge and pack end before it, so they nest
+    # in their bank_build, the prefetch worker's included
+    names = dict((m["tid"], m["args"]["name"])
+                 for m in obs.tracer._metadata_events())
+    for tid in names:
+        order = "".join(e["name"] + " " for e in evs
+                        if e["tid"] == tid and e["ph"] == "X")
+        assert re.fullmatch("(?:merge pack bank_build )*", order), order
+    assert any(n.startswith("weight-bank-prefetch") and any(
+        e["tid"] == tid and e["name"] == "merge" for e in evs)
+        for tid, n in names.items())
     tids = {e["tid"] for e in evs}
     assert len(tids) >= 2
     assert tids <= {m["tid"] for m in obs.tracer._metadata_events()}
@@ -377,6 +404,78 @@ def test_bank_spans_from_threaded_churn_reconcile():
     assert counts.get("bank._lock", 0) > 0
     assert counts.get("tracer._lock", 0) > 0
     mon.assert_clean()
+
+
+# ---------------------------------------------------------------------------
+# Spans as profiler ranges.
+# ---------------------------------------------------------------------------
+
+
+def _profiled_ranges(tmp_path, fn) -> list[tuple]:
+    """(start, end, name) of the ``user_annotation`` events a CPU
+    ``torch.profiler`` run of ``fn`` records, on the profiler's clock."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+            if e.get("cat") == "user_annotation"]
+
+
+def _with_parents(spans) -> list[tuple]:
+    """(name, innermost enclosing name) of each (start, end, name), in
+    start order."""
+    out, stack = [], []
+    for a, b, name in sorted(spans, key=lambda s: (s[0], -s[1])):
+        while stack and stack[-1][1] <= a:
+            stack.pop()
+        out.append((name, stack[-1][2] if stack else None))
+        stack.append((a, b, name))
+    return out
+
+
+def test_spans_are_profiler_ranges_nested_as_in_the_buffer(tiny_setup,
+                                                            tmp_path):
+    cfg, params, plan, hubs, router = tiny_setup
+
+    def ticks(obs):
+        bank = WeightBank(params, plan, hubs, router, TALORA_CFG, 100,
+                          device="cpu")
+        eng = DiffusionServingEngine(
+            cfg, make_schedule("linear", 100), bank, max_batch=2,
+            async_prefetch=False, device="cpu", obs=obs)
+        for i in range(3):
+            eng.submit(steps=2, seed=i)
+        return lambda: [eng.tick() for _ in range(4)]
+
+    obs = Observability()
+    ranges = _profiled_ranges(tmp_path, ticks(obs))
+    spans = [(e["ts"], e["ts"] + e["dur"], f"{e['cat']}.{e['name']}")
+             for e in obs.tracer.events() if e["ph"] == "X"]
+    assert {n for *_, n in spans} >= {
+        "engine.tick", "engine.admit", "engine.group", "bank.bank_fetch",
+        "engine.forward", "engine.stage", "engine.launch", "engine.sync",
+        "engine.advance", "engine.prefetch", "bank.bank_build",
+        "bank.merge", "bank.pack"}
+    assert _with_parents(ranges) == _with_parents(spans)
+
+    # a leaked inner span's range is closed by the outer end, first
+    tr = SpanTracer(clock=lambda: 0.0)
+
+    def leak():
+        outer = tr.begin("outer")
+        tr.begin("leaked")
+        tr.end(outer)
+        tr.end(tr.begin("next"))
+    got = {n: (a, b) for a, b, n in _profiled_ranges(tmp_path, leak)}
+    assert got["engine.outer"][0] <= got["engine.leaked"][0]
+    assert got["engine.leaked"][1] <= got["engine.outer"][1]
+    assert got["engine.next"][0] >= got["engine.outer"][1]
+
+    assert not [n for *_, n in _profiled_ranges(tmp_path, ticks(None))
+                if n.startswith(("engine.", "bank."))]
 
 
 # ---------------------------------------------------------------------------
