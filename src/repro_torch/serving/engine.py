@@ -16,7 +16,11 @@ One engine *tick*:
      pair and are recombined as ``eps_u + s * (eps_c - eps_u)``) — batches
      pad to power-of-two buckets (outputs masked by slicing), so the
      kernels see a handful of shapes under churny in-flight counts,
-  5. advance each request's sampler state; retire finished requests.
+  5. advance the members' sampler states in one group pass
+     (``sampler_advance_group``: one slab update per sampler kind and
+     phase, not one per request); retire finished requests. Where the
+     module's ``sampler_advance`` has been replaced (a harness's or a
+     test's seam), the members advance one by one through it instead.
 
 The forward runs under a *serve-mode* ``QuantContext`` — activation
 quantization happens inside the fused W4A4 kernel for packed dense sites
@@ -60,8 +64,10 @@ holds its phases in this order, each a child span:
     ``launch`` (the host's enqueue of one UNet forward) for each
     partition, then ``sync`` (the device synchronise; zero length on the
     CPU);
-  * ``advance`` — the CFG combine, ``sampler_advance``, retire and
-    ``on_complete`` of every member;
+  * ``advance`` — the CFG combine and the group advance (its args:
+    ``advance_groups``, the sub-groups run, and ``advance_group_rows``,
+    the rows they advanced), then retire and ``on_complete`` of every
+    member;
   * ``prefetch`` — the bank prefetches for the members' next segments.
 
 Each span is also a profiler range named ``<cat>.<name>`` on the
@@ -76,8 +82,10 @@ from typing import Callable
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.diffusion.samplers import (sampler_advance, sampler_init,
-                                            sampler_needed_t)
+from repro_torch.diffusion import samplers
+from repro_torch.diffusion.samplers import (sampler_advance,
+                                            sampler_advance_group,
+                                            sampler_init, sampler_needed_t)
 from repro_torch.diffusion.schedule import NoiseSchedule
 from repro_torch.nn.unet import UNetConfig, unet_apply
 from repro_torch.quant.calibrate import QuantContext
@@ -192,6 +200,8 @@ class DiffusionServingEngine:
         self.n_idle_sleeps = 0
         self.n_finished = 0
         self.n_expired = 0
+        self.n_advance_groups = 0        # group advance's sub-groups run
+        self.n_advance_group_rows = 0    # and the rows they advanced
         self._latencies: list[float] = []    # scalars only; never evicted
         self.results: dict[int, RequestState] = {}
         # traffic-subsystem hooks; each receives the RequestState (or the
@@ -328,7 +338,7 @@ class DiffusionServingEngine:
 
         t_compute = self._now()
         n_shapes_before = len(self._shapes)
-        eps_by_item = self._run_partitions(params, items)
+        partitions = self._run_partitions(params, items)
         compiled = len(self._shapes) > n_shapes_before
         if not compiled:
             # skip ticks that ran a new (bucket, has_y) shape: its first
@@ -350,14 +360,31 @@ class DiffusionServingEngine:
 
         finished = []
         tick = self.tick_count
+        if sampler_advance is samplers.sampler_advance:
+            eps, states = self._member_eps(partitions, members)
+            n_groups = sampler_advance_group(states, eps)
+            self.n_advance_groups += n_groups
+            self.n_advance_group_rows += len(states)
+            if obs.enabled:
+                phase.args.update({"advance_groups": n_groups,
+                                   "advance_group_rows": len(states)})
+        else:
+            # a substituted per-request advance (a test's or a harness's
+            # seam) sees each member's eps as before
+            eps_by_item = {}
+            for eps, part in partitions:
+                for j, (rs, role, *_rest) in enumerate(part):
+                    eps_by_item.setdefault(id(rs), {})[role] = eps[j:j + 1]
+            for rs in members:
+                parts = eps_by_item[id(rs)]
+                if _PLAIN in parts:
+                    eps = parts[_PLAIN]
+                else:
+                    s = rs.req.guidance_scale
+                    eps = parts[_UNCOND] + s * (parts[_COND]
+                                                - parts[_UNCOND])
+                sampler_advance(rs.state, eps)
         for rs in members:
-            parts = eps_by_item[id(rs)]
-            if _PLAIN in parts:
-                eps = parts[_PLAIN]
-            else:
-                s = rs.req.guidance_scale
-                eps = parts[_UNCOND] + s * (parts[_COND] - parts[_UNCOND])
-            sampler_advance(rs.state, eps)
             rs.last_advance_tick = tick
             rs.n_evals += 1
             if obs.enabled:
@@ -404,15 +431,16 @@ class DiffusionServingEngine:
             cb(self)
         return finished
 
-    def _run_partitions(self, params, items) -> dict[int, dict]:
-        """One batched forward per class-conditioning partition.
+    def _run_partitions(self, params, items) -> list[tuple]:
+        """One batched forward per class-conditioning partition; returns
+        each partition's (eps slab, its items in row order).
 
         ``unet_apply`` takes a single optional ``y`` array, so items with
         and without a label cannot share a forward; each partition still
         batches arbitrary timesteps (``t`` is per-sample).
         """
         traced = self.obs.enabled
-        eps_by_item: dict[int, dict] = {}
+        partitions = []
         padded_rows = 0
         for has_y in (False, True):
             part = [it for it in items if (it[4] is not None) == has_y]
@@ -431,8 +459,7 @@ class DiffusionServingEngine:
             self.n_forwards += 1
             self.n_samples_batched += len(part)
             padded_rows += self._bucket(len(part))
-            for j, (rs, role, *_rest) in enumerate(part):
-                eps_by_item.setdefault(id(rs), {})[role] = eps[j:j + 1]
+            partitions.append((eps, part))
         if traced:
             self._next_phase("sync")            # zero length on the CPU
         if self.device.type == "cuda":
@@ -442,7 +469,38 @@ class DiffusionServingEngine:
         self._last_padded_rows = padded_rows
         for cb in self.on_forward:
             cb(self, padded_rows)
-        return eps_by_item
+        return partitions
+
+    def _member_eps(self, partitions, members):
+        """The members' eps as one slab, and the sampler states its rows
+        belong to: the plain members' rows, then the guided members' CFG
+        combine ``eps_u + s * (eps_c - eps_u)``, one pass with a per-row
+        ``s``. A single partition of plain members is used as it is."""
+        slabs = [eps for eps, _ in partitions]
+        eps = slabs[0] if len(slabs) == 1 else torch.cat(slabs)
+        row, n = {}, 0
+        for slab, part in partitions:
+            for j, (rs, role, *_rest) in enumerate(part):
+                row[id(rs), role] = n + j
+            n += slab.shape[0]
+        plain = [rs for rs in members if rs.req.guidance_scale <= 0]
+        guided = [rs for rs in members if rs.req.guidance_scale > 0]
+
+        def take(rss, role):
+            rows = [row[id(rs), role] for rs in rss]
+            if rows == list(range(n)):
+                return eps
+            return eps[torch.tensor(rows, device=eps.device)]
+        out = []
+        if plain:
+            out.append(take(plain, _PLAIN))
+        if guided:
+            u, c = take(guided, _UNCOND), take(guided, _COND)
+            s = torch.tensor([rs.req.guidance_scale for rs in guided],
+                             dtype=torch.float32).to(eps.device)
+            out.append(u + s.view(-1, 1, 1, 1) * (c - u))
+        return (out[0] if len(out) == 1 else torch.cat(out),
+                [rs.state for rs in plain + guided])
 
     # Partition batches pad to power-of-two buckets so churny in-flight
     # counts reuse a handful of forward shapes instead of one per distinct
@@ -546,6 +604,8 @@ class DiffusionServingEngine:
              "padded_samples": self.n_padded_samples,
              "idle_sleeps": self.n_idle_sleeps,
              "prefetch_hits": self.bank.prefetch_hits,
+             "advance_groups": self.n_advance_groups,
+             "advance_group_rows": self.n_advance_group_rows,
              "p50_s": percentile(lat, 50), "p95_s": percentile(lat, 95),
              "p99_s": percentile(lat, 99)}
         d.update({f"bank_{k}": v for k, v in self.bank.describe().items()})

@@ -20,7 +20,10 @@ bf16: relative Frobenius error 2e-2); the golden replay at tiny_ddim(8)
 card vs CPU: tick log, outcomes, bank counters and x_T identical, x0 on
 power-of-two weight scales within chip_smoke.py's REPLAY_X0_LIMIT (the
 relative Frobenius error of the model's part of x0 <= 5e-2, at most 40% of
-the elements off, which K2/K3 snapping bf16-rounded acts must break)."""
+the elements off, which K2/K3 snapping bf16-rounded acts must break); the
+samplers' group advance bit-exact to the per-request one, and the engine
+on the group path against its per-request fall-back x0 within 1e-6
+(relative L2) with the same decisions."""
 import dataclasses
 import pathlib
 
@@ -56,6 +59,8 @@ from repro_torch.serving.replay import (BANK_COUNTERS, dyadic_unet_weights,
                                         replay_mismatches, x0_error)
 from repro_torch.serving.traffic import get_scenario, load_trace, run_scenario
 from repro_torch.serving.weight_bank import _tree_to
+from test_torch_samplers import CASES as SAMPLER_CASES
+from test_torch_samplers import check_group_case, serve_both_paths
 
 S, U = 0, 1
 
@@ -815,6 +820,32 @@ def test_golden_replay_on_card_matches_cpu(cuda, monkeypatch):
         monkeypatch.undo()
         assert not _within(x0_error(ctl["x0"], host["x0"], base),
                            REPLAY_X0_LIMIT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SAMPLER_CASES))
+def test_group_advance_on_card_is_per_request_bit_for_bit(cuda, case):
+    """The samplers' group advance on the card: each row's bits equal
+    ``sampler_advance``'s, whose divisions by a host scalar torch runs as
+    products with its f32 reciprocal there."""
+    check_group_case(case, cuda)
+
+
+@pytest.mark.gpu
+def test_engine_group_path_on_card_matches_per_request(cuda):
+    """The engine on the card, group path against a substituted
+    per-request advance: x0 within 1e-6 (relative L2), the same outcomes
+    and tick decisions."""
+    runs = serve_both_paths(cuda)
+    grp, ref = runs["group"], runs["per_request"]
+    assert grp["outcomes"] == ref["outcomes"]
+    assert grp["ticks"] == ref["ticks"]
+    assert sorted(grp["x0"]) == sorted(ref["x0"]) and ref["x0"]
+    for r, want in ref["x0"].items():
+        gap = torch.linalg.vector_norm((grp["x0"][r] - want).double())
+        assert gap <= 1e-6 * torch.linalg.vector_norm(want.double()), r
+    assert ref["stats"]["advance_groups"] == 0
+    assert grp["stats"]["advance_groups"] > 0
 
 
 def _gateway_run(dev):
