@@ -11,12 +11,13 @@ checked from the program's own input, where rounding stays rounding:
 
 ``trajectory_gap``: for a sample of the requests (drawn from the seed; in
 an open-loop cell with the one of most evals), the reference's sampler
-from the same x_T, fed at each eval the eps the program's forward made
-for that request's row, against the latent the program evaluated at each
-eval and the x0 it returned: the widest relative L2 gap. It covers the
-start from x_T, every sampler advance, each request getting its own row's
-eps at its own timestep, and the answer as returned; a missing, extra or
-mistimed eval reads inf.
+from the same x_T (and, at eta > 0, the same noise, drawn from the seed
+the request was submitted with), fed at each eval the eps the program's
+forward made for that request's row, against the latent the program
+evaluated at each eval and the x0 it returned: the widest relative L2
+gap. It covers the start from x_T, every sampler advance, each request
+getting its own row's eps at its own timestep, and the answer as
+returned; a missing, extra or mistimed eval reads inf.
 
 ``layer_gap``: one forward of the program (the first after the window),
 recorded op by op: the input and output rows (the batch's first and last)
@@ -27,6 +28,9 @@ op's input against what the reference's glue (timestep embedding, SiLU,
 residual adds, attention products, concat, upsample) makes from the
 program's earlier outputs: the widest relative L2 gap, also over the
 forward's output against the eps the engine got.
+
+``trajectory_gap`` holds the samplers and serves any diffusion family;
+``layer_gap`` holds the UNet family's model (``families/unet.py``).
 """
 from __future__ import annotations
 
@@ -86,10 +90,9 @@ def trajectory_gap(cfg: dict, reqs: list, x_T: torch.Tensor,
     gap = 0.0
     with torch.inference_mode():
         for r in reqs:
-            if r.eta:
-                raise ValueError("the reference's samplers run eta 0 only")
             s = reference.Sampler(r.sampler, cfg["T"], r.steps,
-                                  x_T[r.index:r.index + 1])
+                                  x_T[r.index:r.index + 1], eta=r.eta,
+                                  seed=r.index)
             for t, x, eps in records.get(r.index, []):
                 if s.done or int(t) != s.t:
                     return float("inf")

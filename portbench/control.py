@@ -1,4 +1,5 @@
-"""The control behind a cell's limits, on the card at the cell's own size.
+"""The control behind a UNet-family cell's limits, on the card at the
+cell's own size.
 
     python3 portbench/control.py --workload bedroom.online --seeds 1 2 3
 
@@ -9,7 +10,7 @@ each seed, on the seed's weights and x_T, it is held against the float32
 reference exactly as the harness holds the program:
 
 * ``layer_gap``: one of its forwards at the cell's batch (a backlog's full
-  batch; one row under open-loop traffic) at a timestep drawn from the
+  bucket; one row under open-loop traffic) at a timestep drawn from the
   seed, recorded op by op;
 * ``trajectory_gap``: the sample of requests a run with that seed follows,
   served end to end by the control, its eps and latents recorded at each
@@ -32,17 +33,14 @@ def control_gaps(cell, seed: int, seconds: float, device) -> dict:
     import torch
     from portbench import check, inputs, loadgen, reference
     cfg, traffic = cell.cfg, cell.traffic
-    gen = inputs.generator(seed, device)
-    params = inputs.params(cfg, gen)
-    hubs, router = inputs.hubs(cfg, gen), inputs.router(cfg, gen)
-    reqs = loadgen.generate(traffic, seed, seconds)
-    x_T = inputs.noise(cfg, gen, len(reqs))
+    drawn = cell.family.draw(cell, seed, seconds, device)
+    x_T = drawn.x_T
     b = loadgen.buckets(traffic)[-1] if traffic["process"] == "backlog" \
         else 1
-    x = inputs.noise(cfg, gen, b)
+    x = inputs.noise(cfg, drawn.gen, b)
     t = int(np.random.default_rng(seed).integers(cfg["T"]))
     tb = torch.full((b,), float(t), device=x.device)
-    weights = reference.Weights(params, hubs, router, cfg)
+    weights = reference.Weights(drawn.params, drawn.hubs, drawn.router, cfg)
     rows = torch.tensor(sorted({0, b - 1}), device=x.device)
     ops = []
 
@@ -63,15 +61,14 @@ def control_gaps(cell, seed: int, seconds: float, device) -> dict:
     capture = {"x": x[rows], "t": tb[rows], "eps": eps[rows], "ops": ops}
     out = {"layer_gap": check.layer_gap(cfg, weights, capture)}
 
-    from portbench import harness
     plain = reference.UNet(cfg, torch.bfloat16)
-    follow = [r for r in reqs if r.index in harness.sample_of(cell, reqs,
-                                                              seed)]
+    follow = [r for r in drawn.reqs if r.index in drawn.follow]
     records, answers = {}, {}
     with torch.inference_mode(), check.full_f32():
         for r in follow:
             s = reference.Sampler(r.sampler, cfg["T"], r.steps,
-                                  x_T[r.index:r.index + 1], torch.bfloat16)
+                                  x_T[r.index:r.index + 1], torch.bfloat16,
+                                  eta=r.eta, seed=r.index)
             rec = records[r.index] = []
             while not s.done:
                 tt = torch.full((1,), float(s.t), device=x.device)

@@ -14,6 +14,7 @@ import collections
 import dataclasses
 import json
 import os
+import re
 import tempfile
 
 import torch
@@ -26,22 +27,9 @@ WINDOW = "portbench.window"
 class Trace:
     window_s: float
     busy_s: float
-    kernel_s: dict            # "K2" / "K3" -> device seconds
+    kernel_s: dict            # kernel class -> device seconds
     device_ops: list          # [[name, seconds]] the ten longest by name
     idle_gaps: list           # [[host span: op, seconds]] the ten longest
-
-
-def kernel_class(name: str) -> str | None:
-    """K3 and K2 share one tensor-core body (``w4_gemm_kernel``, with its
-    split-K ``splitk_reduce``), told apart by the act loader it is built
-    with: ``ConvA`` (K3 ``w4a4_conv2d``) or ``DenseA`` (K2
-    ``w4a4_matmul``)."""
-    if "w4_gemm_kernel" in name or "splitk_reduce" in name:
-        if "ConvA" in name:
-            return "K3"
-        if "DenseA" in name:
-            return "K2"
-    return None
 
 
 def short(name: str) -> str:
@@ -77,8 +65,16 @@ def _merge(intervals):
     return out
 
 
-def read(prof: torch.profiler.profile) -> Trace:
-    """Reduce the trace of the stopped ``prof``."""
+def read(prof: torch.profiler.profile, kernels: dict) -> Trace:
+    """Reduce the trace of the stopped ``prof``; ``kernels`` (a family's
+    ``KERNELS``) maps a pattern, searched for in a device kernel's name,
+    to the kernel class whose device time ``kernel_s`` sums: the first
+    pattern that matches."""
+    classes = [(re.compile(pat), k) for pat, k in kernels.items()]
+
+    def kernel_class(name: str) -> str | None:
+        return next((k for pat, k in classes if pat.search(name)), None)
+
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:

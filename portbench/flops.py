@@ -1,8 +1,9 @@
 """Operations and bytes from the layer shapes, and the table of peaks.
 
-``layers(cfg, batch)`` walks the UNet as the configuration defines it and
-lists every product the model computes: each conv and dense layer and the
-two attention products. The model's FLOPs are twice the multiply-adds of
+``layers(cfg, batch)`` (the UNet family's, ``families/unet.py``) walks
+the UNet as the configuration defines it and lists every product the
+model computes: each conv and dense layer and the two attention
+products. The model's FLOPs are twice the multiply-adds of
 those products (what ``torch.utils.flop_counter.FlopCounterMode`` counts);
 a kernel's bound counts the operations of the layers it computes and the
 bytes of reading each input once and writing each output once, at the rows

@@ -1,28 +1,38 @@
 """One run of one cell: set-up, the measured window, the trace, the metrics
 and the comparison that decides ``correct``.
 
-Everything that belongs to one configuration, traffic mix or metric is a
-file the harness finds by name (``BENCHMARK.json`` names them):
-``configs/<config>.json``, ``traffic/<traffic>.json``,
-``metrics/<metric>.py`` (a ``read(run)`` that returns a number or None)
-and ``limits/<workload>.json`` (the limit of each number compared).
+Everything that belongs to one configuration, traffic mix, metric or
+model family is a file the harness finds by name (``BENCHMARK.json``
+names the cells and configurations): ``configs/<config>.json`` (whose
+``family`` key names the model family), ``families/<family>.py``,
+``traffic/<traffic>.json``, ``metrics/<metric>.py`` (a ``read(run)`` that
+returns a number or None) and ``limits/<workload>.json`` (the limit of
+each number compared).
 
-The system under test is the port's serving entry,
-``repro_torch.serving.DiffusionServingEngine``, built as
-``launch/serve_diffusion.py`` builds it (the abs-max FP4 plan, TALoRA hubs
-and router, E2M1 acts, policy ``fifo``, the implicit conv route, no obs),
-with a weight bank that holds every routing segment, all built in set-up.
+A family module owns all that the harness does not need to know of the
+model: ``build(cell, seed, seconds, device, clock)`` draws the inputs from
+the seed, generates the requests (``loadgen``), picks those the
+comparison follows and builds the port's engine through its normal
+entry, and returns the system, which has ``engine`` (``submit``, ``tick``,
+``batcher``, ``n_forwards``, ``n_samples_batched``, ``results``,
+``on_forward``, ``stats``), ``device``, ``reqs``, ``follow``, ``set_up()``
+(the builds and warm forwards; returns ``bank_build_s``), ``submit(req)``,
+``close()`` (the window has closed) and ``ready(follow)`` (what the
+drain waits on); ``evals_per_image(cell, reqs)``,
+``flops_per_eval(cfg)`` and ``kernel_bound_seconds(cfg, kernel, batch)``
+count the work; ``KERNELS`` maps a pattern of a device kernel's name to
+its kernel class (``devtrace.read``); and ``compare(system)`` frees the
+engine and returns the values named in the cell's limits file. A run
+whose comparison leaves out a number that the limits file names, or
+returns one that it does not name, is not correct.
+
 The harness submits the traffic's requests when they are due and steps
-``engine.tick()`` itself, so the window has a fixed length. It watches
-through two seams: the engine's ``apply_fn`` (``Recorder``: the model
-call itself, noting what the comparison needs) and the batcher's
-``select`` (which requests a forward's rows hold).
+``engine.tick()`` itself, so the window has a fixed length.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
-import gc
 import importlib.util
 import json
 import math
@@ -33,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from portbench import check, devtrace, flops, inputs, loadgen, reference
+from portbench import devtrace
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -66,6 +76,7 @@ class Cell:
     per_layer: list
     limits: dict
     root: pathlib.Path
+    family: object = None     # the module families/<family>.py
 
 
 def _reports(metric: dict, cell: str, e2e_names: set) -> bool:
@@ -88,25 +99,42 @@ def load_cell(workload: str, root: pathlib.Path = ROOT) -> Cell:
     per_layer = [m for m in spec["per_layer"]
                  if _reports(m, workload, names)]
     bench = root / "portbench"
+    cfg = json.loads((root / conf["file"]).read_text())
+    if "family" not in cfg:
+        raise SystemExit(f"{conf['file']} has no \"family\" key: a "
+                         "configuration names its model family, the module "
+                         "portbench/families/<family>.py")
     return Cell(
-        name=workload, config_name=w["config"],
-        cfg=json.loads((root / conf["file"]).read_text()),
+        name=workload, config_name=w["config"], cfg=cfg,
         traffic_name=w["traffic"],
         traffic=json.loads((bench / "traffic" / f"{w['traffic']}.json")
                            .read_text()),
         end_to_end=e2e, per_layer=per_layer,
         limits=json.loads((bench / "limits" / f"{workload}.json")
                           .read_text()),
-        root=root)
+        root=root, family=load_family(root, cfg["family"]))
+
+
+def _load(path: pathlib.Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    # registered, as an import would, so that its dataclasses resolve
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_family(root: pathlib.Path, name: str):
+    path = root / "portbench" / "families" / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"no model family {name!r}: "
+                         f"{path.relative_to(root)} does not exist")
+    return _load(path, "portbench_family_" + name.replace(".", "_"))
 
 
 def load_reader(root: pathlib.Path, name: str):
     path = root / "portbench" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(path, "portbench_metric_" + name.replace(".", "_")).read
 
 
 class Clock:
@@ -144,21 +172,15 @@ class Run:
         return self.cell.cfg
 
     @property
+    def family(self):
+        return self.cell.family
+
+    @property
     def traffic(self) -> dict:
         return self.cell.traffic
 
 
-def _unet_config(cfg: dict):
-    from repro_torch.nn.unet import UNetConfig
-    return UNetConfig(image_size=cfg["image_size"], in_ch=cfg["in_ch"],
-                      out_ch=cfg["out_ch"], ch=cfg["ch"],
-                      ch_mult=tuple(cfg["ch_mult"]),
-                      num_res_blocks=cfg["num_res_blocks"],
-                      attn_resolutions=tuple(cfg["attn_resolutions"]),
-                      gn_groups=cfg["gn_groups"])
-
-
-def _sync(device) -> None:
+def sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -167,134 +189,12 @@ def _span(name: str):
     return torch.profiler.record_function(f"portbench.{name}")
 
 
-class Recorder:
-    """The engine's model call (its ``apply_fn`` seam): ``unet_apply``
-    itself, noting for the comparison, without a synchronise, the input,
-    timestep and eps rows of the sampled requests at every forward; and
-    once asked (``capture``), the first and last rows of every conv, dense
-    and GroupNorm call of one forward."""
-
-    def __init__(self, ucfg, sampled: set):
-        self.ucfg = ucfg
-        self.sampled = sampled
-        self.members: list = []
-        self.records = collections.defaultdict(list)
-        self.capture = False
-        self.captured: dict | None = None
-
-    def select(self, select):
-        """Wrap the batcher's ``select`` to learn each forward's rows: one
-        partition (no class labels), rows in the members' order."""
-        def recording_select(*args, **kw):
-            seg, self.members = select(*args, **kw)
-            return seg, self.members
-        return recording_select
-
-    def __call__(self, params, x, tb, y, ctx):
-        from repro_torch.nn import unet
-        if not self.capture:
-            eps = unet.unet_apply(params, x, tb, self.ucfg, y=y, ctx=ctx)
-        else:
-            eps = self._captured_forward(unet, params, x, tb, y, ctx)
-        for j, rs in enumerate(self.members[:x.shape[0]]):
-            if rs.req.seed in self.sampled:
-                self.records[rs.req.seed].append(
-                    (tb[j:j + 1].clone(), x[j:j + 1].clone(),
-                     eps[j:j + 1].clone()))
-        return eps
-
-    def _captured_forward(self, unet, params, x, tb, y, ctx):
-        rows = torch.tensor(sorted({0, x.shape[0] - 1}), device=x.device)
-        ops, saved = [], {}
-        for name in ("conv2d_apply", "dense_apply", "groupnorm_apply"):
-            fn = saved[name] = getattr(unet, name)
-
-            def rec(p, xx, _fn=fn, **kw):
-                out = _fn(p, xx, **kw)
-                ops.append((xx[rows].float(), out[rows].float()))
-                return out
-            setattr(unet, name, rec)
-        try:
-            eps = unet.unet_apply(params, x, tb, self.ucfg, y=y, ctx=ctx)
-        finally:
-            for name, fn in saved.items():
-                setattr(unet, name, fn)
-        self.capture = False
-        self.captured = {"x": x[rows].clone(), "t": tb[rows].clone(),
-                         "eps": eps[rows].clone(), "ops": ops}
-        return eps
-
-
-class System:
-    """The port, built for one cell from the handed inputs."""
-
-    def __init__(self, cell: Cell, params: dict, hubs: dict, router: dict,
-                 x_T: torch.Tensor, clock: Clock, device,
-                 sampled: set = frozenset()):
-        from repro_torch.common.tree import flatten_paths
-        from repro_torch.core import talora
-        from repro_torch.diffusion.schedule import make_schedule
-        from repro_torch.kernels import ops
-        from repro_torch.nn.unet import io_sites
-        from repro_torch.quant.fakequant import (KIND_FP_SIGNED,
-                                                 QuantizerParams)
-        from repro_torch.serving import (DiffusionServingEngine, WeightBank,
-                                         default_serving_plan)
-        from repro_torch.serving.obs import NULL_OBS
-        cfg = cell.cfg
-        ops.CONV_ROUTE = "implicit"
-        self.device = device
-        self.ucfg = _unet_config(cfg)
-        weights = {k: v for k, v in flatten_paths(params).items()
-                   if k.endswith("/w") and v.ndim >= 2}
-        plan = default_serving_plan(weights, io_sites=io_sites(params))
-        self.bank = WeightBank(params, plan, hubs, router,
-                               talora.TALoRAConfig(**cfg["talora"]), cfg["T"],
-                               max_cached=cfg["T"], device=device)
-        act = QuantizerParams(KIND_FP_SIGNED, 2, 1, 4, torch.tensor(
-            float(cfg["act_maxval"]), device=device))
-
-        def new_engine(max_batch: int, clock: Clock):
-            self.recorder = Recorder(self.ucfg, sampled)
-            eng = DiffusionServingEngine(
-                self.ucfg, make_schedule("linear", cfg["T"]), self.bank,
-                act_qps={"*": act}, apply_fn=self.recorder,
-                max_batch=max_batch, policy="fifo", now_fn=clock.now,
-                obs=NULL_OBS, device=device,
-                noise_fn=lambda req: x_T[req.seed:req.seed + 1])
-            eng.batcher.select = self.recorder.select(eng.batcher.select)
-            return eng
-
-        self.new_engine = new_engine
-        self.engine = new_engine(cell.traffic["max_batch"], clock)
-
-    def build_segments(self) -> None:
-        for s in range(self.bank.n_segments):
-            self.bank.prefetch(s, block=True)
-        _sync(self.device)
-
-    def warm(self, buckets: list[int], gen: torch.Generator) -> None:
-        """One forward at each batch bucket the traffic runs."""
-        from repro_torch.nn.unet import unet_apply
-        params = self.bank.params_for_segment(0)
-        s, c = self.ucfg.image_size, self.ucfg.in_ch
-        for b in buckets:
-            x = torch.randn((b, s, s, c), generator=gen, device=gen.device)
-            tb = (torch.arange(b, device=gen.device) % self.bank.T).float()
-            with torch.inference_mode():
-                unet_apply(params, x, tb, self.ucfg, ctx=self.engine.ctx)
-        _sync(self.device)
-
-    def submit(self, r: loadgen.Request) -> int:
-        return self.engine.submit(steps=r.steps, eta=r.eta, seed=r.index,
-                                  sampler=r.sampler, arrival=r.due)
-
-
 class Window:
-    """Drives the system through the window, ticking and recording; the
-    first forward after it is the one the comparison records op by op."""
+    """Drives a family's system through the window, ticking ``engine``
+    and recording; once the window has closed it tells the system
+    (``close``) and drains until the system is ``ready``."""
 
-    def __init__(self, system: System, clock: Clock, seconds: float,
+    def __init__(self, system, clock: Clock, seconds: float,
                  trace: bool):
         self.sys, self.clock, self.seconds = system, clock, seconds
         self.trace_on = trace
@@ -355,44 +255,40 @@ class Window:
             dev = self.sys.device
             if dev.type == "cuda":
                 self.peak = torch.cuda.max_memory_allocated(dev)
-            rec = self.sys.recorder
-            rec.capture = rec.captured is None
+            self.sys.close()
 
     def run_backlog(self, follow: set) -> None:
-        """Tick through the window, then once more (the forward the
-        comparison records) and on until the requests in ``follow`` have
-        finished (at most ``DRAIN_LIMIT_S`` past the window)."""
-        eng = self.sys.engine
-        batcher = eng.batcher
+        """Tick through the window, then on until the system is ready for
+        ``follow`` (at most ``DRAIN_LIMIT_S`` past the window)."""
+        batcher = self.sys.engine.batcher
         while self.clock.now() < self.seconds and (batcher.inflight
                                                    or batcher.pending):
             self.tick()
         self.close()
-        while batcher.inflight and (
-                self.sys.recorder.captured is None
-                or not follow <= {rs.req.seed for rs in eng.results.values()}):
+        # a window that closes as a batch retires leaves nothing in flight
+        # and the backlog pending: the next tick admits and runs it
+        while ((batcher.inflight or batcher.pending)
+               and not self.sys.ready(follow)):
             if self.clock.now() > self.seconds + DRAIN_LIMIT_S:
                 break
             self.tick()
 
     def run_open(self, reqs: list, follow: set) -> list:
         """Submit each request when due and tick, through the window and on
-        until the requests in ``follow`` have finished (at most
+        until the system is ready for ``follow`` (at most
         ``DRAIN_LIMIT_S`` past the window). Returns the generator's
         lateness at every submit."""
         eng = self.sys.engine
-        late, rid_of = [], {}
+        late = []
         i = 0
         while True:
             now = self.clock.now()
             with _span("submit"):
                 while i < len(reqs) and reqs[i].due <= now:
-                    rid_of[reqs[i].index] = self.sys.submit(reqs[i])
+                    self.sys.submit(reqs[i])
                     late.append(self.clock.now() - reqs[i].due)
                     i += 1
-            if (now >= self.seconds
-                    and self.sys.recorder.captured is not None
-                    and all(rid_of.get(k) in eng.results for k in follow)):
+            if now >= self.seconds and self.sys.ready(follow):
                 break
             if now > self.seconds + DRAIN_LIMIT_S:
                 break
@@ -408,71 +304,41 @@ class Window:
         return late
 
 
-def sample_of(cell: Cell, reqs: list, seed: int) -> list[int]:
-    """The requests the comparison follows, drawn from the seed before the
-    run: from a backlog's first batch, or from the requests due in the
-    window's first third with the one of most evals among them; both
-    finish within the window even where the queue grows (at twice the
-    knee a request due at d finishes near 2d plus its own service)."""
-    T = cell.cfg["T"]
-    if cell.traffic["process"] == "backlog":
-        cand = [r.index for r in reqs[:cell.traffic["max_batch"]]]
-        return check.pick(cand, {}, seed, longest=False)
-    third = max(r.due for r in reqs if r.in_window) / 3
-    evals = {r.index: reference.n_evals(r.sampler, T, r.steps)
-             for r in reqs if r.in_window and r.due <= third}
-    return check.pick(list(evals), evals, seed, longest=True)
-
-
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
              t_start: float) -> dict:
     """One run; returns the result line's object (without checking what
     the process has loaded: the caller does that last)."""
     device = torch.device(device)
     clock = Clock()
-    cfg, traffic = cell.cfg, cell.traffic
-    gen = inputs.generator(seed, device)
-    params = inputs.params(cfg, gen)
-    hubs = inputs.hubs(cfg, gen)
-    router = inputs.router(cfg, gen)
-    reqs = loadgen.generate(traffic, seed, seconds,
-                            TAIL_S if traffic["process"] != "backlog" else 0)
-    x_T = inputs.noise(cfg, gen, len(reqs))
-    sample = sample_of(cell, reqs, seed)
-    system = System(cell, params, hubs, router, x_T, clock, device,
-                    set(sample))
-    t_bank = time.perf_counter()
-    system.build_segments()
-    window = [r for r in reqs if r.in_window]
-    run = Run(cell, bank_build_s=time.perf_counter() - t_bank,
-              flops_per_eval=flops.model_flops(cfg, 1),
-              evals_per_image=float(np.mean([
-                  reference.n_evals(r.sampler, cfg["T"], r.steps)
-                  for r in window])))
-    system.warm(loadgen.buckets(traffic), gen)
+    fam, traffic = cell.family, cell.traffic
+    system = fam.build(cell, seed, seconds, device, clock)
+    run = Run(cell, bank_build_s=system.set_up(),
+              flops_per_eval=fam.flops_per_eval(cell.cfg),
+              evals_per_image=fam.evals_per_image(
+                  cell, [r for r in system.reqs if r.in_window]))
     if trace:
         devtrace.prime(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    eng = system.engine
     if traffic["process"] == "backlog":
-        for r in reqs:
+        for r in system.reqs:
             system.submit(r)
-    _sync(device)
+    sync(device)
     win = Window(system, clock, seconds, trace)
     clock.reset()
     run.setup_s = time.perf_counter() - t_start
+    follow = set(system.follow)
     late = []
     if traffic["process"] == "backlog":
-        win.run_backlog(set(sample))
+        win.run_backlog(follow)
     else:
-        late = win.run_open(reqs, set(sample))
-    _sync(device)
+        late = win.run_open(system.reqs, follow)
+    sync(device)
     run.window_s = win.end
     run.ticks, run.tick_s = win.ticks, win.tick_s
     run.forwards, run.evals = win.forwards, win.evals
     if win.prof is not None:
-        run.trace = devtrace.read(win.prof)
+        run.trace = devtrace.read(win.prof, fam.KERNELS)
         run.traced_buckets = win.traced
     if late:
         print(f"generator lateness: max {max(late) * 1e3:.3f} ms, median "
@@ -481,39 +347,29 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
     # the answers: every request finished by the run's end (one still
     # queued is late, not wrong), and every followed one
-    by_index = {rs.req.seed: rs for rs in eng.results.values()}
-    due = sorted(set(by_index) | set(sample))
+    by_index = {rs.req.seed: rs for rs in system.engine.results.values()}
+    due = sorted(set(by_index) | follow)
     failed = [i for i in due if i not in by_index
               or by_index[i].x0 is None
               or not bool(torch.isfinite(by_index[i].x0).all())]
-    answers = {i: by_index[i].x0 for i in sample
-               if i in by_index and by_index[i].x0 is not None}
-    rec = system.recorder
-    stats = eng.stats()
-    del by_index, eng
-    system.bank = system.engine = None
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-
-    t_ref = time.perf_counter()
-    spec = {r.index: r for r in reqs}
-    weights = reference.Weights(params, hubs, router, cfg)
-    checks = {
-        "trajectory_gap": check.trajectory_gap(
-            cfg, [spec[i] for i in sample], x_T, rec.records, answers),
-        "layer_gap": (check.layer_gap(cfg, weights, rec.captured)
-                      if rec.captured is not None else float("inf"))}
-    print(f"reference: {len(sample)} trajectories and one forward in "
-          f"{time.perf_counter() - t_ref:.1f} s", file=sys.stderr)
+    stats = system.engine.stats()
+    del by_index
+    checks = fam.compare(system)
 
     metrics = {}
     for m in (cell.end_to_end if not trace else cell.per_layer):
         v = load_reader(cell.root, m["name"])(run)
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
-    correct = (not failed and all(math.isfinite(v) for v in checks.values())
-               and all(v <= cell.limits[k] for k, v in checks.items()))
+    # every number the limits file names, and no other, is compared
+    names = list(cell.limits) + [k for k in checks if k not in cell.limits]
+    unmatched = [k for k in names if k not in checks or k not in cell.limits]
+    if unmatched:
+        print(f"checks {unmatched}: each is in only one of the limits file "
+              "and the family's comparison", file=sys.stderr)
+    correct = (not failed and not unmatched
+               and all(math.isfinite(checks[k]) and checks[k] <= cell.limits[k]
+                       for k in names))
     out = {"correct": correct, "attempted": len(due),
            "failed": len(failed), "metrics": metrics,
            "device": {"platform": "gpu" if device.type == "cuda" else "cpu",
@@ -530,6 +386,6 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                                            "padded_samples",
                                            "bank_segments", "bank_builds",
                                            "bank_misses")}
-    out["checks"] = {k: {"value": v, "limit": cell.limits[k]}
-                     for k, v in checks.items()}
+    out["checks"] = {k: {"value": checks.get(k), "limit": cell.limits.get(k)}
+                     for k in names}
     return out

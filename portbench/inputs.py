@@ -1,6 +1,7 @@
-"""What the benchmark hands to both sides, made from ``--seed`` on the
-device in a few large draws: the UNet's parameters, the TALoRA hubs and
-router, and each request's x_T.
+"""What the benchmark hands to both sides of the UNet family
+(``families/unet.py``), made from ``--seed`` on the device in a few large
+draws: the UNet's parameters, the TALoRA hubs and router, and each
+request's x_T.
 
 Every conv and dense weight is drawn at its fan-in scale (``N(0, 1 /
 fan_in)``), the output layers included, so that every layer moves the

@@ -17,7 +17,9 @@ The mix (``samplers``, ``steps``, ``steps_jitter``, ``eta``) shapes
 request i as ``steps + i % (steps_jitter + 1)`` steps of
 ``samplers[i % len(samplers)]``; a window's requests take the mix's first
 N shapes in an order drawn from the seed, so every seed sends the same
-sizes. ``max_batch`` is the engine's in-flight cap for the traffic.
+sizes. ``max_batch`` is the engine's in-flight cap for the traffic. A
+``source`` key, where there is one, names the public setting that the
+mix copies; the generator does not read it.
 
 ``poisson_arrivals`` and ``percentile`` are frozen copies of the port's
 ``serving/traffic/generators.py:poisson_arrivals`` and

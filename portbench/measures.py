@@ -24,10 +24,11 @@ def mfu_percent(run) -> float | None:
 
 def roofline_percent(run, kernel: str) -> float | None:
     """``kernel``'s bound time over its device time in the traced window:
-    the bound summed over the traced forwards at their padded batch."""
+    the bound (the family's ``kernel_bound_seconds``) summed over the
+    traced forwards at their padded batch."""
     if run.trace is None or not run.trace.kernel_s.get(kernel):
         return None
-    bound = sum(n * flops.kernel_bound_seconds(run.cfg, kernel, b)
+    bound = sum(n * run.family.kernel_bound_seconds(run.cfg, kernel, b)
                 for b, n in run.traced_buckets.items())
     return 100.0 * bound / run.trace.kernel_s[kernel]
 

@@ -44,14 +44,13 @@ import os
 import pathlib
 import sys
 import tempfile
-import time
 
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-from portbench import devtrace, harness, inputs, loadgen  # noqa: E402
+from portbench import devtrace, harness  # noqa: E402
 
 OUTSIDE = "outside engine"
 # the tick's phases, the direct children of its span
@@ -274,31 +273,19 @@ def traced_run(cell: harness.Cell, seed: int, seconds: float, bundle,
     from repro_torch.serving import obs as obs_module
     device = torch.device(device)
     clock = harness.Clock()
-    cfg, traffic = cell.cfg, cell.traffic
-    gen = inputs.generator(seed, device)
-    params = inputs.params(cfg, gen)
-    hubs = inputs.hubs(cfg, gen)
-    router = inputs.router(cfg, gen)
-    backlog = traffic["process"] == "backlog"
-    reqs = loadgen.generate(traffic, seed, seconds,
-                            0 if backlog else harness.TAIL_S)
-    x_T = inputs.noise(cfg, gen, len(reqs))
-    # harness.System builds its engine with the NULL_OBS it imports while
-    # it is built: lend it the bundle for that
+    backlog = cell.traffic["process"] == "backlog"
+    # the family builds its engine with the NULL_OBS it imports while it
+    # is built: lend it the bundle for that
     null = obs_module.NULL_OBS
     obs_module.NULL_OBS = bundle
     try:
-        system = harness.System(cell, params, hubs, router, x_T, clock,
-                                device)
+        system = cell.family.build(cell, seed, seconds, device, clock)
     finally:
         obs_module.NULL_OBS = null
-    t_bank = time.perf_counter()
-    system.build_segments()
-    bank_build_s = time.perf_counter() - t_bank
-    system.warm(loadgen.buckets(traffic), gen)
+    bank_build_s = system.set_up()
     devtrace.prime(device)
     if backlog:
-        for r in reqs:
+        for r in system.reqs:
             system.submit(r)
     _sync(device)
     win = harness.Window(system, clock, seconds, True)
@@ -307,13 +294,14 @@ def traced_run(cell: harness.Cell, seed: int, seconds: float, bundle,
     if backlog:
         win.run_backlog(set())
     else:
-        win.run_open(reqs, set())
+        win.run_open(system.reqs, set())
     _sync(device)
     tracer = bundle.tracer
     spans = (split(tracer.events(), mark, win.end, tracer.dropped)
              if bundle.enabled else None)
     events = chrome_events(win.prof)
-    out = reading(devtrace.read(_Exported(events)), events, spans)
+    out = reading(devtrace.read(_Exported(events), cell.family.KERNELS),
+                  events, spans)
     out.update(tick_ms=1e3 * sum(win.tick_s) / max(len(win.tick_s), 1),
                ticks=win.ticks, bank_build_s=bank_build_s,
                tracer={"events": len(tracer.events()),

@@ -19,14 +19,22 @@ engine or cache:
   embedding picks one of ``h`` rank-``r`` adapters per layer (argmax, on
   the host in f32; layers in sorted path order), folded into the weight as
   ``w + A B * alpha / r`` before it is quantized;
-* the samplers' step machines: DDIM (Song et al. 2021), PLMS (Liu et al.
-  2022) and DPM-Solver-2 (Lu et al. 2022, the midpoint mapped to the
-  nearest discrete timestep in log-SNR), eta 0, per-step coefficients as
-  f32 host scalars from a linear beta schedule.
+* the samplers' step machines: DDIM (Song et al. 2021) at any eta, PLMS
+  (Liu et al. 2022) and DPM-Solver-2 (Lu et al. 2022, the midpoint mapped
+  to the nearest discrete timestep in log-SNR) at eta 0, per-step
+  coefficients as f32 host scalars from a linear beta schedule. DDIM's
+  noise at eta > 0 is a standard normal draw a step from a CPU
+  ``torch.Generator`` seeded with the request's seed, the seed that the
+  benchmark hands the engine with the request.
 
 ``UNet`` takes ``dtype``, the type of everything outside the 4-bit
 products (norms, attention, the residual stream): float32 as the
 configuration states, or bfloat16 for the control.
+
+The UNet, its weights and their merge are the UNet family's reference
+(``families/unet.py``). The samplers (``Sampler``, ``n_evals``,
+``alpha_bars``, ``timesteps``) are not the UNet's: any diffusion family
+reuses them.
 
 Imports torch and numpy only.
 """
@@ -372,28 +380,33 @@ def n_evals(sampler: str, T: int, steps: int) -> int:
     return 2 * (n - 1) + 1 if sampler == "dpm_solver2" else n
 
 
-def _ddim(ab, x, t, t_prev, eps):
-    """x_t -> x_{t_prev} (t_prev = -1: x0), eta 0."""
+def _ddim(ab, x, t, t_prev, eps, eta=0.0, noise=None):
+    """x_t -> x_{t_prev} (t_prev = -1: x0); ``noise`` at eta > 0."""
     a_t = ab[t]
     a_p = ab[t_prev] if t_prev >= 0 else torch.tensor(1.0)
     x0 = (x - torch.sqrt(1 - a_t) * eps) / torch.sqrt(a_t)
-    sigma = 0.0 * torch.sqrt((1 - a_p) / (1 - a_t)) * torch.sqrt(
+    sigma = eta * torch.sqrt((1 - a_p) / (1 - a_t)) * torch.sqrt(
         1 - a_t / a_p)
     dir_xt = torch.sqrt(torch.clamp_min(1 - a_p - sigma ** 2, 0.0)) * eps
-    return torch.sqrt(a_p) * x0 + dir_xt
+    out = torch.sqrt(a_p) * x0 + dir_xt
+    if noise is not None:
+        out = out + sigma * noise
+    return out
 
 
 class Sampler:
     """A request's trajectory, one eps at a time: ``t`` names the timestep
     to evaluate next and ``x`` the latent to evaluate, ``advance(eps)``
     consumes it; the latents in ``dtype`` (float32, or bfloat16 for the
-    control)."""
+    control). DDIM runs at ``eta``, its noise drawn from ``seed``."""
 
     def __init__(self, kind: str, T: int, steps: int, x_T: torch.Tensor,
-                 dtype=torch.float32):
+                 dtype=torch.float32, eta: float = 0.0, seed: int = 0):
         if kind not in ("ddim", "plms", "dpm_solver2"):
             raise ValueError(f"unknown sampler {kind!r}")
         self.kind = kind
+        self.eta = float(eta) if kind == "ddim" else 0.0
+        self.gen = torch.Generator().manual_seed(seed)
         self.ab = alpha_bars(T)
         self.seq = timesteps(T, steps)
         self.state = x_T.to(dtype)
@@ -438,7 +451,11 @@ class Sampler:
                      - 9 * old[-3]) / 24
             self.old = (old + [eps])[-3:]
             eps = e
-        self.state = _ddim(ab, self.state, t, t_prev, eps)
+        noise = None
+        if self.eta > 0:
+            noise = torch.randn(self.state.shape, generator=self.gen).to(
+                self.state.device, self.state.dtype)
+        self.state = _ddim(ab, self.state, t, t_prev, eps, self.eta, noise)
         self.i += 1
         self.done = self.i >= len(seq)
 

@@ -47,9 +47,10 @@ def main() -> int:
                for r in args.rates)
     x_T = inputs.noise(cfg, gen, most)
     clock = harness.Clock()
-    system = harness.System(cell, params, hubs, router, x_T, clock, device)
-    system.build_segments()
-    system.warm(loadgen.buckets(cell.traffic), gen)
+    system = cell.family.System(
+        cell, cell.family.Inputs(gen, params, hubs, router, [], x_T, []),
+        clock, device)
+    system.set_up()
     print(f"set-up {time.perf_counter() - T_START:.1f} s", file=sys.stderr)
     for rate in args.rates:
         traffic = dict(cell.traffic, rate=rate)

@@ -8,6 +8,7 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -101,17 +102,66 @@ def test_an_open_loop_cell_past_its_knee(root):
     assert {"mean_batch.online", "tick_ms.online"} <= set(traced["metrics"])
 
 
-def _stale_step(monkeypatch):
-    from repro_torch.serving import engine
-    orig, calls = engine.sampler_advance, itertools.count()
+def test_set_up_builds_the_segments_the_traffic_routes_to(root):
+    """A backlog, whose queue is known, builds the segments its requests'
+    timesteps route to; open-loop traffic, every segment. Neither misses
+    in the window."""
+    batch = run(root)["engine"]
+    assert batch["bank_misses"] == 0
+    assert 0 < batch["bank_builds"] < batch["bank_segments"]
+    online = run(root, cell="tiny.online")["engine"]
+    assert online["bank_builds"] == online["bank_segments"]
+    assert online["bank_misses"] == 0
 
-    def advance(st, eps):
-        x = st.x
-        orig(st, eps)
-        if next(calls) % 4 == 3:
-            st.x = x          # this step returns its state unchanged
-        return st
-    monkeypatch.setattr(engine, "sampler_advance", advance)
+
+def _noisy(root):
+    cell = harness.load_cell("tiny.batch", root)
+    cell.traffic = dict(cell.traffic, eta=1.0)
+    return cell
+
+
+def test_a_cell_at_eta_1_is_held_to_its_noise(root, monkeypatch):
+    """At eta 1 each step adds noise drawn from the request's seed: the
+    reference draws it again, and noise from another seed is a fault."""
+    out = harness.run_cell(_noisy(root), 2**31 + 99, 1.5, False, "cpu", 0.0)
+    assert out["correct"]
+    assert out["checks"]["trajectory_gap"]["value"] == 0.0
+    from repro_torch.serving import engine
+    init = engine.sampler_init
+
+    def other_seed(*args, seed=0, **kw):
+        return init(*args, seed=seed + 1, **kw)
+    monkeypatch.setattr(engine, "sampler_init", other_seed)
+    out = harness.run_cell(_noisy(root), 2**31 + 99, 1.5, False, "cpu", 0.0)
+    assert not out["correct"]
+    assert out["checks"]["trajectory_gap"]["value"] > 1e-3
+
+
+def _group_seam(monkeypatch, after):
+    """Wrap the engine's group advance, the path the cells time: ``after``
+    sees each call's states and their latents from before it. Returns the
+    rows of each call made, a list the run fills."""
+    from repro_torch.serving import engine
+    orig, calls = engine.sampler_advance_group, []
+
+    def advance_group(states, eps):
+        xs = [st.x for st in states]
+        n = orig(states, eps)
+        after(states, xs)
+        calls.append(len(states))
+        return n
+    monkeypatch.setattr(engine, "sampler_advance_group", advance_group)
+    return calls
+
+
+def _stale_step(monkeypatch):
+    rows = itertools.count()
+
+    def after(states, xs):
+        for st, x in zip(states, xs):
+            if next(rows) % 4 == 3:
+                st.x = x      # this row's step returns its state unchanged
+    return _group_seam(monkeypatch, after)
 
 
 def _half_batch(monkeypatch):
@@ -128,24 +178,67 @@ def _half_batch(monkeypatch):
 
 
 def _altered_answer(monkeypatch):
-    from repro_torch.serving import engine
-    orig = engine.sampler_advance
-
-    def advance(st, eps):
-        orig(st, eps)
-        if st.done:
-            st.x = st.x * 1.01    # the answer, altered where it is made
-        return st
-    monkeypatch.setattr(engine, "sampler_advance", advance)
+    def after(states, xs):
+        for st in states:
+            if st.done:
+                st.x = st.x * 1.01    # the answer, altered where it is made
+    return _group_seam(monkeypatch, after)
 
 
 @pytest.mark.parametrize("fault", [_stale_step, _half_batch,
                                    _altered_answer])
 def test_a_broken_timed_path_is_not_correct(root, monkeypatch, fault):
-    fault(monkeypatch)
+    calls = fault(monkeypatch)
     out = run(root)
     assert not out["correct"]
     assert out["checks"]["trajectory_gap"]["value"] > 1e-3
+    if calls is not None:     # the group advance ran, broken
+        assert calls and max(calls) > 1
+
+
+class _SteppedClock:
+    """Advances 0.1 s each time it is read."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def now(self):
+        self.t += 0.1
+        return self.t
+
+
+class _OneTickBatches:
+    """A backlog engine whose every tick admits, runs and retires one
+    batch, so nothing is in flight between ticks; a forward after the
+    system's ``close`` is the one it records."""
+
+    def __init__(self, system):
+        self.sys = system
+        self.batcher = types.SimpleNamespace(inflight=[],
+                                             pending=list(range(20)))
+        self.on_forward, self.n_forwards, self.n_samples_batched = [], 0, 0
+
+    def tick(self):
+        self.batcher.pending.pop()
+        self.n_forwards += 1
+        self.n_samples_batched += 4
+        self.sys.recorded |= self.sys.closed
+        for cb in self.on_forward:
+            cb(self, 4)
+
+
+def test_a_backlog_window_closing_between_batches_still_records():
+    system = types.SimpleNamespace(device=torch.device("cpu"), closed=False,
+                                   recorded=False)
+    system.engine = _OneTickBatches(system)
+    system.close = lambda: setattr(system, "closed", True)
+    system.ready = lambda follow: system.recorded
+    # the clock reads 0.8 in the window's fourth tick and 0.9 when the loop
+    # looks again: the window closes between two batches
+    win = harness.Window(system, _SteppedClock(), 0.85, False)
+    win.run_backlog(set())
+    assert win.ticks == 4 and system.closed and system.recorded
+    assert system.engine.n_forwards == 5
 
 
 def test_the_control_is_not_correct(root):

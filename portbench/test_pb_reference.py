@@ -50,8 +50,10 @@ def setup():
     x_T = inputs.noise(cfg, gen, 4)
     cell = harness.Cell("tiny", "tiny", cfg, "t", {"max_batch": 4}, [], [],
                         {}, harness.ROOT)
-    system = harness.System(cell, params, hubs, router, x_T,
-                            harness.Clock(), torch.device("cpu"))
+    unet = harness.load_family(harness.ROOT, "unet")
+    system = unet.System(cell, unet.Inputs(gen, params, hubs, router, [],
+                                           x_T, []),
+                         harness.Clock(), torch.device("cpu"))
     return cfg, params, hubs, router, x_T, system, make_schedule(
         "linear", cfg["T"])
 
@@ -131,6 +133,35 @@ def test_each_sampler_steps_as_the_port(setup, kind):
         assert ours.done == port.done
     assert n == reference.n_evals(kind, cfg["T"], steps)
     assert torch.equal(port.x, ours.state)
+
+
+def test_ddim_with_noise_steps_as_the_port_group_advance(setup):
+    """At eta 1 the port's group advance, the path the cells time, draws
+    each row's noise from the row's seed; the reference draws it again."""
+    from repro_torch.diffusion.samplers import (sampler_advance_group,
+                                                sampler_init)
+    cfg, _, _, _, x_T, _, sched = setup
+    seeds = (3, 11, 2**31 + 5)
+    port = [sampler_init("ddim", sched, (1, 8, 8, 3), steps=6, eta=1.0,
+                         seed=s, x_T=x_T[i:i + 1])
+            for i, s in enumerate(seeds)]
+    ours = [reference.Sampler("ddim", cfg["T"], 6, x_T[i:i + 1], eta=1.0,
+                              seed=s) for i, s in enumerate(seeds)]
+    gen = torch.Generator().manual_seed(2)
+    while not port[0].done:
+        for p, o in zip(port, ours):
+            assert torch.equal(p.x, o.x)
+        eps = torch.randn((3, 8, 8, 3), generator=gen)
+        sampler_advance_group(port, eps)
+        for o, e in zip(ours, eps.split(1)):
+            o.advance(e)
+    assert all(o.done for o in ours)
+    for p, o in zip(port, ours):
+        assert torch.equal(p.x, o.state)
+    plain = reference.Sampler("ddim", cfg["T"], 6, x_T[:1])
+    for e in torch.randn((6, 1, 8, 8, 3), generator=gen):
+        plain.advance(e)
+    assert not torch.equal(plain.state, ours[0].state)
 
 
 def test_reference_imports_torch_and_numpy_only():
