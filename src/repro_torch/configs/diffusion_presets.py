@@ -33,6 +33,27 @@ def ldm4_imagenet() -> UNetConfig:
                       attn_resolutions=(32, 16, 8), num_classes=1000)
 
 
+def sd15() -> UNetConfig:
+    """Stable Diffusion v1.5's text-to-image UNet (512x512 images -> 64x64x4
+    latents; huggingface.co/stable-diffusion-v1-5, ``unet/config.json``):
+    block_out_channels 320/640/1280/1280, a spatial transformer of 8 heads
+    after every ResBlock of the first three levels and in the middle,
+    cross-attending to 77 CLIP tokens of width 768."""
+    return UNetConfig(image_size=64, in_ch=4, out_ch=4, ch=320,
+                      ch_mult=(1, 2, 4, 4), num_res_blocks=2,
+                      attn_resolutions=(64, 32, 16), num_heads=8,
+                      context_dim=768)
+
+
+def tiny_sd(size: int = 8) -> UNetConfig:
+    """CPU-sized text-to-image config used by tests: one transformer
+    level of 2 heads, a 16-wide context."""
+    return UNetConfig(image_size=size, in_ch=4, out_ch=4, ch=32,
+                      ch_mult=(1, 2), num_res_blocks=1,
+                      attn_resolutions=(size // 2,), gn_groups=8,
+                      num_heads=2, context_dim=16)
+
+
 def tiny_ddim(size: int = 16) -> UNetConfig:
     """CPU-sized reduced config used by tests."""
     return UNetConfig(image_size=size, ch=32, ch_mult=(1, 2),
@@ -46,5 +67,10 @@ DIFFUSION_PRESETS = {
     "ldm4-bedroom": ldm4_bedroom,
     "ldm8-church": ldm8_church,
     "ldm4-imagenet": ldm4_imagenet,
+    "sd15": sd15,
     "tiny-ddim": tiny_ddim,
+    "tiny-sd": tiny_sd,
 }
+
+# the noise schedule each preset was trained with, where it is not linear
+SCHEDULES = {"sd15": "scaled_linear", "tiny-sd": "scaled_linear"}

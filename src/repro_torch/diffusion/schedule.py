@@ -37,6 +37,9 @@ def make_schedule(kind: str = "linear", T: int = 1000, *,
     elif kind == "quad":  # DDIM paper's CelebA schedule
         betas = np.linspace(beta_start**0.5, beta_end**0.5, T,
                             dtype=np.float64) ** 2
+    elif kind == "scaled_linear":   # Stable Diffusion's: quad from 0.00085
+        betas = np.linspace(0.00085**0.5, 0.012**0.5, T,
+                            dtype=np.float64) ** 2
     elif kind == "cosine":
         s = 0.008
         ts = np.arange(T + 1, dtype=np.float64) / T

@@ -30,6 +30,12 @@ largest-group-wins scheduler for the slack-aware one. ``--save-trace
 out.jsonl`` captures whatever workload actually ran back into a
 replayable trace.
 
+``--preset sd15`` serves Stable Diffusion v1.5's text-to-image UNet on its
+``scaled_linear`` schedule: each request's text context is drawn from its
+seed (the text encoder is not served), and each runs guided at
+``--guidance-scale`` (default 7.5), its uncond and cond rows in one
+forward.
+
 ``--plan absmax`` (the default) builds the calibration-free abs-max FP4
 plan; ``--plan search`` runs the paper's calibrate + MSE-search pipeline
 first (``diffusion.pipeline.quantize_diffusion``: 4 FP trajectories of 8
@@ -63,7 +69,8 @@ import torch
 from repro_torch.common.clock import wall_clock
 from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import flatten_paths
-from repro_torch.configs.diffusion_presets import DIFFUSION_PRESETS, tiny_ddim
+from repro_torch.configs.diffusion_presets import (DIFFUSION_PRESETS,
+                                                   SCHEDULES, tiny_ddim)
 from repro_torch.core import talora
 from repro_torch.diffusion.pipeline import quantize_diffusion
 from repro_torch.diffusion.schedule import make_schedule
@@ -80,6 +87,32 @@ from repro_torch.serving.traffic import (MetricsCollector, Scenario,
 
 TALORA_CFG = talora.TALoRAConfig(hub_size=2, rank=4, t_emb_dim=32,
                                  router_hidden=16)
+
+# a text preset's context: CLIP's 77 tokens, and the seed of the null
+# prompt's (a request's own is drawn from the request's seed)
+CONTEXT_TOKENS = 77
+NULL_CONTEXT_SEED = -1
+
+
+def drawn_context(seed: int, context_dim: int) -> torch.Tensor:
+    """A (CONTEXT_TOKENS, context_dim) f32 text context drawn from
+    ``seed`` on a CPU generator (seeded by a 32-bit hash of ``seed``, a
+    stream apart from the request's x_T): what stands in for a prompt's
+    encoding, since the text encoder is not served."""
+    gen = torch.Generator().manual_seed(
+        (seed * 0x9E3779B1 + 0x7F4A7C15) % 2**32)
+    return torch.randn((CONTEXT_TOKENS, context_dim), generator=gen)
+
+
+def text_submit(submit, context_dim: int, guidance_scale: float):
+    """``submit`` of a text preset's engine as the workload drives it:
+    every request guided at ``guidance_scale`` (0: unguided), with the
+    context drawn from its seed."""
+    def submit_text(*, seed: int = 0, **kw):
+        kw["guidance_scale"] = guidance_scale
+        return submit(seed=seed, context=drawn_context(seed, context_dim),
+                      **kw)
+    return submit_text
 
 
 def build_quantized(cfg, sched, gen: torch.Generator, *, plan_mode: str,
@@ -234,6 +267,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--act-quant", default="fp4", choices=["off", "fp4"],
                     help="fp4 = fuse E2M1 act quant into packed matmuls")
     ap.add_argument("--act-maxval", type=float, default=6.0)
+    ap.add_argument("--guidance-scale", type=float, default=7.5,
+                    help="text-conditioned presets: the classifier-free "
+                         "guidance scale of every request (0: unguided)")
     ap.add_argument("--conv-route", default="auto",
                     choices=["auto", "implicit", "im2col"],
                     help="packed conv route: implicit-GEMM kernel "
@@ -275,7 +311,7 @@ def main(argv=None) -> dict:
 
     cfg = (tiny_ddim(args.image_size) if args.preset == "tiny-ddim"
            else DIFFUSION_PRESETS[args.preset]())
-    sched = make_schedule("linear", args.T)
+    sched = make_schedule(SCHEDULES.get(args.preset, "linear"), args.T)
     gen = torch.Generator().manual_seed(args.seed)
 
     t0 = wall_clock()
@@ -297,6 +333,8 @@ def main(argv=None) -> dict:
     else:
         act_qps = {}
     clock = VirtualClock() if args.replay_clock == "virtual" else None
+    null_context = (drawn_context(NULL_CONTEXT_SEED, cfg.context_dim)
+                    if cfg.context_dim else None)
     obs = (Observability() if (args.trace_out or args.metrics_out
                                or args.report_json) else NULL_OBS)
     obs.install_kernels()
@@ -306,7 +344,11 @@ def main(argv=None) -> dict:
                                     max_idle_sleep=args.max_idle_sleep,
                                     prefetch=not args.no_prefetch,
                                     async_prefetch=not args.sync_prefetch,
-                                    obs=obs, device=device)
+                                    obs=obs, device=device,
+                                    null_context=null_context)
+    if cfg.context_dim:
+        engine.submit = text_submit(engine.submit, cfg.context_dim,
+                                    args.guidance_scale)
     print(f"bank ready: {bank.n_segments} routing segments, plan={args.plan}, "
           f"device={device} ({wall_clock() - t0:.1f}s)")
     print(f"workload: {scn.name} — {scn.desc} [clock={args.replay_clock}, "

@@ -15,7 +15,13 @@ One engine *tick*:
      (per-sample ``t``; CFG-guided requests contribute a cond + uncond
      pair and are recombined as ``eps_u + s * (eps_c - eps_u)``) — batches
      pad to power-of-two buckets (outputs masked by slicing), so the
-     kernels see a handful of shapes under churny in-flight counts,
+     kernels see a handful of shapes under churny in-flight counts. A
+     text-conditioned model (``cfg.context_dim``) takes a per-row context
+     instead of a label: each request carries its own (``submit``'s
+     ``context``), a guided request's uncond row the engine's one
+     ``null_context``, and both rows of every member run
+     in the same forward (one partition, 2B rows, as Stable Diffusion's
+     ``txt2img.py`` batches them),
   5. advance the members' sampler states in one group pass
      (``sampler_advance_group``: one slab update per sampler kind and
      phase, not one per request); retire finished requests. Where the
@@ -61,9 +67,12 @@ holds its phases in this order, each a child span:
   * ``bank_fetch`` (cat ``bank``) — the segment's weights;
   * ``forward`` — holding ``stage`` (the eval items, the batch's
     ``torch.cat``, the timestep and label tensors, the padding) and
-    ``launch`` (the host's enqueue of one UNet forward) for each
-    partition, then ``sync`` (the device synchronise; zero length on the
-    CPU);
+    ``launch`` (the host's enqueue of one UNet forward; under it, with a
+    text-conditioned model, each spatial transformer's ``unet.transformer``
+    range holding ``unet.self_attn``, ``unet.cross_attn`` and ``unet.ff``)
+    for each partition, then ``sync`` (the device synchronise; zero length
+    on the CPU); its args count ``guided_rows``, the uncond rows run for
+    guidance;
   * ``advance`` — the CFG combine and the group advance (its args:
     ``advance_groups``, the sub-groups run, and ``advance_group_rows``,
     the rows they advanced), then retire and ``on_complete`` of every
@@ -134,13 +143,24 @@ class DiffusionServingEngine:
                  obs=None,
                  model: str | None = None,
                  device="cuda",
-                 noise_fn: Callable[[GenRequest], torch.Tensor] | None = None):
+                 noise_fn: Callable[[GenRequest], torch.Tensor] | None = None,
+                 null_context: torch.Tensor | None = None):
         # device: where latents live and forwards run (the card unless the
         # caller asks for the CPU); noise_fn: optional x_T per request
         # (parity tests inject the reference's draw), default the
-        # sampler's own seeded draw
+        # sampler's own seeded draw. null_context: the uncond rows'
+        # (tokens, context_dim) context, which a text-conditioned model
+        # (``cfg.context_dim``) needs and no other takes.
         self.device = resolve_device(device)
         self.noise_fn = noise_fn
+        if (null_context is None) != (not cfg.context_dim):
+            raise ValueError("a null_context is what a text-conditioned "
+                             "model needs, and only it")
+        self.null_context = None
+        if cfg.context_dim:
+            self.null_context = null_context.to(
+                self.device, torch.float32).reshape(
+                    1, -1, cfg.context_dim)
         # model: identity label when hosted behind the multi-model gateway
         # (obs gauges/spans carry it; None keeps single-model output
         # byte-identical to the pre-gateway format)
@@ -153,9 +173,12 @@ class DiffusionServingEngine:
         self.sched = sched
         self.bank = bank
         self.ctx = QuantContext("serve", act_qps=act_qps or {})
+        # obs on: the UNet's spatial transformers open their ranges too
+        obs = obs or NULL_OBS
+        spans = {"spans": obs.tracer.scope_fn("unet")} if obs.enabled else {}
         self._apply = apply_fn or (
-            lambda params, x, tb, y, ctx: unet_apply(params, x, tb, cfg,
-                                                     y=y, ctx=ctx))
+            lambda params, x, tb, y, ctx, context=None: unet_apply(
+                params, x, tb, cfg, y=y, ctx=ctx, context=context, **spans))
         self.batcher = ContinuousBatcher(max_batch, starvation_ticks,
                                          policy=policy)
         self.batcher.segment_warm = bank.is_cached
@@ -202,6 +225,7 @@ class DiffusionServingEngine:
         self.n_expired = 0
         self.n_advance_groups = 0        # group advance's sub-groups run
         self.n_advance_group_rows = 0    # and the rows they advanced
+        self.n_guided_rows = 0           # uncond rows run for guidance
         self._latencies: list[float] = []    # scalars only; never evicted
         self.results: dict[int, RequestState] = {}
         # traffic-subsystem hooks; each receives the RequestState (or the
@@ -224,10 +248,17 @@ class DiffusionServingEngine:
                guidance_scale: float = 0.0, arrival: float = 0.0,
                deadline: float | None = None, priority: int = 0,
                user: int | None = None, parent: int | None = None,
-               think_s: float | None = None) -> int:
-        if guidance_scale > 0 and (y is None or not self.cfg.num_classes):
+               think_s: float | None = None,
+               context: torch.Tensor | None = None) -> int:
+        text = bool(self.cfg.context_dim)
+        if (context is None) == text:
+            raise ValueError("a text-conditioned model needs each request's "
+                             "context, and no other model takes one")
+        if guidance_scale > 0 and not text and (y is None
+                                                or not self.cfg.num_classes):
             raise ValueError("guidance needs a class label y and a "
-                             "class-conditional model")
+                             "class-conditional model, or a text-"
+                             "conditioned model")
         rid = self._next_rid
         self._next_rid += 1
         req = GenRequest(rid, steps, eta, seed, sampler, y, guidance_scale,
@@ -238,6 +269,9 @@ class DiffusionServingEngine:
                              steps=steps, eta=eta, x_T=x_T,
                              device=self.device)
         rs = RequestState(req, state, submitted_at=self._now())
+        if text:
+            rs.context = context.to(self.device, torch.float32).reshape(
+                1, -1, self.cfg.context_dim)
         self.batcher.submit(rs)
         if self.obs.enabled:
             self.obs.tracer.set_track(self.replica or self.model)
@@ -325,16 +359,22 @@ class DiffusionServingEngine:
         if obs.enabled:
             fwd_span = obs.tracer.begin("forward", cat="engine")
             self._phase_span = obs.tracer.begin("stage", cat="engine")
-        # build eval items: (rs, role, t, x (1,H,W,C), y)
+        # build eval items: (rs, role, t, x (1,H,W,C), y, context
+        # (1,L,D) or None)
         items = []
+        guided = 0
         for rs in members:
             t = sampler_needed_t(rs.state)
             x = rs.state.eval_x
             if rs.req.guidance_scale > 0:
-                items.append((rs, _UNCOND, t, x, None))
-                items.append((rs, _COND, t, x, rs.req.y))
+                guided += 1
+                items.append((rs, _UNCOND, t, x, None,
+                              None if rs.context is None
+                              else self.null_context))
+                items.append((rs, _COND, t, x, rs.req.y, rs.context))
             else:
-                items.append((rs, _PLAIN, t, x, rs.req.y))
+                items.append((rs, _PLAIN, t, x, rs.req.y, rs.context))
+        self.n_guided_rows += guided
 
         t_compute = self._now()
         n_shapes_before = len(self._shapes)
@@ -351,7 +391,8 @@ class DiffusionServingEngine:
             dt = self._now() - t_compute
             fwd_span.args.update({"items": len(items),
                                   "padded_rows": self._last_padded_rows,
-                                  "compiled": compiled})
+                                  "compiled": compiled,
+                                  "guided_rows": guided})
             obs.tracer.end(fwd_span)
             # the same engine-clock observation the cost EWMA consumed
             if not compiled:
@@ -392,6 +433,7 @@ class DiffusionServingEngine:
                                          args={"n_evals": rs.n_evals})
             if rs.state.done:
                 rs.x0 = rs.state.x
+                rs.context = None
                 rs.finished_at = self._now()
                 self.batcher.retire(rs)
                 self.results[rs.req.rid] = rs
@@ -437,7 +479,8 @@ class DiffusionServingEngine:
 
         ``unet_apply`` takes a single optional ``y`` array, so items with
         and without a label cannot share a forward; each partition still
-        batches arbitrary timesteps (``t`` is per-sample).
+        batches arbitrary timesteps (``t`` is per-sample). Text contexts
+        are per row, so a text model's items are one partition.
         """
         traced = self.obs.enabled
         partitions = []
@@ -453,7 +496,11 @@ class DiffusionServingEngine:
                               device=self.device)
             y = (torch.tensor([it[4] for it in part], dtype=torch.int64,
                               device=self.device) if has_y else None)
-            eps = self._forward(params, x, tb, y)
+            if part[0][5] is None:
+                eps = self._forward(params, x, tb, y)
+            else:
+                eps = self._forward(params, x, tb, y,
+                                    torch.cat([it[5] for it in part]))
             if traced:
                 self._next_phase(None)
             self.n_forwards += 1
@@ -508,7 +555,7 @@ class DiffusionServingEngine:
     # function so slack estimates price the padding.
     _bucket = staticmethod(bucket_of)
 
-    def _forward(self, params, x, tb, y):
+    def _forward(self, params, x, tb, y, context=None):
         n = x.shape[0]
         b = self._bucket(n)
         if b != n:
@@ -519,12 +566,19 @@ class DiffusionServingEngine:
             tb = torch.cat([tb, tb[:1].expand(pad)], dim=0)
             if y is not None:
                 y = torch.cat([y, y[:1].expand(pad)], dim=0)
+            if context is not None:
+                context = torch.cat(
+                    [context, context[:1].expand(pad, *context.shape[1:])])
             self.n_padded_samples += pad
         self._shapes.add((b, y is not None))
         if self.obs.enabled:
             self._next_phase("launch")
         with torch.inference_mode():
-            eps = self._apply(params, x, tb, y, self.ctx)
+            if context is None:
+                eps = self._apply(params, x, tb, y, self.ctx)
+            else:
+                eps = self._apply(params, x, tb, y, self.ctx,
+                                  context=context)
         return eps[:n]
 
     def _next_phase(self, name: str | None) -> None:
@@ -606,6 +660,7 @@ class DiffusionServingEngine:
              "prefetch_hits": self.bank.prefetch_hits,
              "advance_groups": self.n_advance_groups,
              "advance_group_rows": self.n_advance_group_rows,
+             "guided_rows": self.n_guided_rows,
              "p50_s": percentile(lat, 50), "p95_s": percentile(lat, 95),
              "p99_s": percentile(lat, 99)}
         d.update({f"bank_{k}": v for k, v in self.bank.describe().items()})

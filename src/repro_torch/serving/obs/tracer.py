@@ -44,6 +44,7 @@ worker shows up as ``weight-bank-prefetch_0``).
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import threading
 
@@ -98,6 +99,20 @@ class SpanTracer:
 
     def set_clock(self, clock) -> None:
         self._clock = clock
+
+    def scope_fn(self, cat: str):
+        """``name -> context manager`` of a duration span ``name`` in
+        ``cat`` (and so of the profiler range ``<cat>.<name>``): what a
+        callee that holds no obs bundle is handed, so that it opens spans
+        with no ``enabled`` branch of its own (the UNet's ``spans``)."""
+        @contextlib.contextmanager
+        def scope(name: str):
+            span = self.begin(name, cat=cat)
+            try:
+                yield
+            finally:
+                self.end(span)
+        return scope
 
     def now_us(self) -> float:
         return self._clock() * 1e6

@@ -82,12 +82,15 @@ def group_padded_rows(members: list["RequestState"]) -> int:
     """Padded rows a group's tick actually runs. The engine partitions
     eval items by class conditioning — a CFG-guided request contributes
     one row to *each* partition (uncond + cond), a plain one a single
-    row to its own — and pads every partition to its own power-of-two
+    row to its own; a text-guided one (no label) both rows to the
+    unlabelled one — and pads every partition to its own power-of-two
     bucket, so the cost model must price the sum of per-partition
     buckets, not one joint bucket."""
     n_none = n_y = 0
     for rs in members:
-        if rs.req.guidance_scale > 0:
+        if rs.req.guidance_scale > 0 and rs.req.y is None:
+            n_none += 2
+        elif rs.req.guidance_scale > 0:
             n_none += 1
             n_y += 1
         elif rs.req.y is None:
@@ -165,6 +168,7 @@ class RequestState:
     n_evals: int = 0
     x0: torch.Tensor | None = None
     expired: bool = False           # refused admission past its deadline
+    context: torch.Tensor | None = None   # a text model's (1, L, D) context
 
     @property
     def latency(self) -> float | None:

@@ -478,6 +478,60 @@ def test_spans_are_profiler_ranges_nested_as_in_the_buffer(tiny_setup,
                 if n.startswith(("engine.", "bank."))]
 
 
+def test_text_model_ranges_and_guided_rows(tmp_path):
+    """A text-conditioned model's spatial transformers open
+    ``unet.transformer`` (holding ``unet.self_attn``, ``unet.cross_attn``,
+    ``unet.ff``) under the engine's ``launch`` with obs on, as buffer spans
+    and as profiler ranges; none under ``NULL_OBS``. ``guided_rows``
+    counts the uncond rows run for guidance, in the stats and the
+    ``forward`` span's args."""
+    from repro_torch.configs.diffusion_presets import tiny_sd
+    cfg = tiny_sd()
+    gen = torch.Generator().manual_seed(0)
+    params = unet_init(gen, cfg, "cpu")
+    plan, hubs, router = absmax_talora_setup(params, TALORA_CFG, gen,
+                                             io_sites=io_sites(params))
+
+    def ticks(obs):
+        bank = WeightBank(params, plan, hubs, router, TALORA_CFG, 20,
+                          device="cpu")
+        ctx = torch.randn((4, 3, cfg.context_dim),
+                          generator=torch.Generator().manual_seed(1))
+        eng = DiffusionServingEngine(
+            cfg, make_schedule("scaled_linear", 20), bank, max_batch=2,
+            async_prefetch=False, device="cpu", obs=obs,
+            null_context=ctx[3])
+        eng.submit(steps=2, seed=0, guidance_scale=7.5, context=ctx[0])
+        eng.submit(steps=2, seed=1, context=ctx[1])
+        eng.submit(steps=2, seed=2, guidance_scale=3.0, context=ctx[2])
+        return eng, lambda: [eng.tick() for _ in range(4)]
+
+    obs = Observability()
+    eng, run = ticks(obs)
+    ranges = _profiled_ranges(tmp_path, run)
+    unet_names = {"unet.transformer", "unet.self_attn", "unet.cross_attn",
+                  "unet.ff"}
+    parents = set(_with_parents(ranges))
+    assert {("unet.transformer", "engine.launch"),
+            ("unet.self_attn", "unet.transformer"),
+            ("unet.cross_attn", "unet.transformer"),
+            ("unet.ff", "unet.transformer")} <= parents
+    spans = [e for e in obs.tracer.events() if e["ph"] == "X"]
+    # tiny_sd's one transformer level (one down, two up) and the middle
+    n_fwd = eng.n_forwards
+    assert sum(e["cat"] == "unet" and e["name"] == "transformer"
+               for e in spans) == 4 * n_fwd
+    # ticks of 2 members (the guided seed 0 with seed 1, then seed 2)
+    fwd = [e["args"]["guided_rows"] for e in spans
+           if e["cat"] == "engine" and e["name"] == "forward"]
+    assert fwd == [1, 1, 1, 1] and eng.stats()["guided_rows"] == 4
+    assert eng.n_samples_batched == 3 + 3 + 2 + 2
+
+    eng, run = ticks(NULL_OBS)
+    assert not {n for *_, n in _profiled_ranges(tmp_path, run)} & unet_names
+    assert eng.stats()["guided_rows"] == 4
+
+
 # ---------------------------------------------------------------------------
 # MetricsCollector retention + folded counters.
 # ---------------------------------------------------------------------------
